@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py                 # RMAT scale 22, k = 16, cuda:0
+    python3 chip_smoke.py --scale 16      # a quicker run
+
+Phases, each of which fails the run when it fails:
+
+1. device: the card's name, the device count and its power limit;
+2. build: nvcc compiles the two LP kernels from ``kaminpar_tpu_torch/csrc``;
+3. kernels: on the finest graph's degree-bucketed layout (the shapes the
+   main path gives them) each kernel is compared with its plain PyTorch
+   version on the same inputs on the card (exact equality: all values are
+   integers) and timed against it; then, on a small graph, one whole LP
+   round and one balancer round on the card are compared with the plain
+   rounds on the CPU, with the same draws;
+4. main path: ``KaMinPar("default").compute_partition(k)`` on the card,
+   with the kernels' launch counters set to 0 just before and read just
+   after; the partition must be feasible, use all k blocks and cut less
+   than 0.95x the edge weight a random partition cuts (RMAT graphs are
+   expander-like: at scale 22 a good k=16 cut is about 0.9x random), and
+   both kernels must have run;
+5. a small graph partitioned on the card and on the CPU: both feasible,
+   cuts within 1.3x of each other.
+
+It prints one JSON line per kernel, the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with
+code 2 before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# The data sheet's float32 rate outside the tensor cores.  It lists no
+# int32 rate, and scalar integer operations run no faster than this, so a
+# time reckoned from it is a lower bound.
+SCALAR_OPS_PER_S = 67e12
+RATE_SOURCE = "kaminpar_tpu_torch/csrc/lp_rate.cu"
+COMMIT_SOURCE = "kaminpar_tpu_torch/csrc/lp_commit.cu"
+RATE_REPLACES = "kaminpar_tpu/ops/pallas_lp.py:245"
+COMMIT_REPLACES = "kaminpar_tpu/ops/pallas_lp.py:654"
+K, EPSILON = 16, 0.03  # BASELINE.md config 2: RMAT scale 22, k = 16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` over ``iters`` back-to-back calls,
+    timed with CUDA events after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(ref, out) -> int:
+    """Largest absolute difference over the tensors of two result tuples."""
+    import torch
+
+    err = 0
+    for r, o in zip(ref, out):
+        d = (r.cpu().to(torch.int64) - o.cpu().to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
+        sys.exit(2)
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+    return name, count, smi
+
+
+def phase_build():
+    from kaminpar_tpu_torch.ops import lp_kernels
+
+    t0 = time.perf_counter()
+    lp_kernels.build()
+    lines = [
+        ln.strip() for ln in lp_kernels.BUILD_INFO["log"].splitlines()
+        if any(s in ln for s in ("registers", "spill", "smem", "Compiling entry"))
+    ]
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    for ln in lines:
+        log(f"  ptxas: {ln}")
+
+
+def finest_graph(graph, k, device):
+    """The graph the main path partitions: isolated nodes stripped, on the
+    card (as the facade builds it)."""
+    from kaminpar_tpu_torch.graph.csr import from_numpy_csr
+    from kaminpar_tpu_torch.graph.isolated import strip_isolated_csr
+
+    stripped = strip_isolated_csr(
+        graph.host_row_ptr(), lambda: graph.col_idx.numpy(), graph.node_w.numpy(),
+        graph.n, k,
+    )
+    if stripped is None:
+        return graph.to(device)
+    _, _, rp, col, nw = stripped
+    return from_numpy_csr(rp, col, nw, graph.edge_w.numpy(), device=device)
+
+
+def rate_pass_bytes(bv, n_pad: int, L: int, maxw_len: int) -> int:
+    """Bytes one rating pass over all buckets must move: each input read
+    once (the label, node-weight, label-weight and cap tables, and every
+    bucket's nodes, cols, wgts, tie) and each output written once."""
+    total = 4 * (2 * n_pad + L + maxw_len)
+    for b in bv.buckets:
+        R, w = b.cols.shape
+        total += 4 * R + 3 * 4 * R * w + R * (3 * 4 + 1)
+    return total
+
+
+def rate_pass_ops(bv) -> int:
+    """Integer operations one rating pass must do at the least: the
+    compare-exchanges of a bitonic sort of every row, and one add and one
+    max per slot for the run reduction."""
+    total = 0
+    for b in bv.buckets:
+        R, w = b.cols.shape
+        lg = w.bit_length() - 1
+        total += R * (w // 2) * lg * (lg + 1) // 2 + 2 * R * w
+    return total
+
+
+def commit_bytes(n: int, L: int, maxw_len: int, act: bool, coin: bool) -> int:
+    return 4 * (6 * n + L + maxw_len) + n * (int(act) + int(coin)) + 4 * (n + L + 1)
+
+
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the byte time and the op time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(work, device, k: int):
+    """Each kernel against its plain version, both on the card, on the
+    inputs the finest graph's bucketed layout gives them."""
+    import torch
+
+    from kaminpar_tpu_torch.ops import bucketed_gains, lp, lp_kernels
+
+    pv, bv = work.padded(), work.bucketed()
+    n_pad = pv.n_pad
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    shapes = [tuple(b.cols.shape) for b in bv.buckets]
+    log(f"kernels: finest graph n={work.n} m={work.m} n_pad={n_pad}; buckets (R, w): "
+        f"{shapes}; heavy rows {int(bv.heavy.nodes.shape[0])}")
+
+    # -- rating kernel: both instantiations, every flag combination the
+    #    path uses, both tie-breaks, every bucket -----------------------
+    rate_err = 0
+    configs = [
+        ("cluster", False, True, "uniform"),
+        ("cluster", False, True, "lightest"),
+        ("cluster", False, False, "uniform"),
+        ("refine", False, True, "uniform"),
+        ("refine", True, True, "uniform"),
+        ("refine", False, True, "lightest"),
+    ]
+    timed = None
+    for inst, ext, caps, tie_break in configs:
+        L = n_pad if inst == "cluster" else lp.num_labels_bucket(k)
+        labels = randint(0, max(n_pad // 3, 1) if inst == "cluster" else k, (n_pad,))
+        lw = torch.zeros(L, dtype=torch.int32, device=device).index_add_(0, labels, pv.node_w)
+        if inst == "cluster":
+            maxw = (lw[lw > 0].float().median().int() + 1).to(torch.int32)
+        else:
+            maxw = torch.zeros(L, dtype=torch.int32, device=device)
+            maxw[:k] = int(lw[:k].float().mean() * 1.03)
+        ties = [randint(0, 2**31 - 1, s) for s in shapes]
+        args = (labels, pv.node_w, lw, maxw)
+        flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
+        for b, tie in zip(bv.buckets, ties):
+            ref = bucketed_gains._bucket_moves(labels, b, pv.node_w, lw, maxw, tie, **flags)
+            out = lp_kernels.rate_bucket(*args, b, tie, **flags)
+            err = max_abs_err(ref, out)
+            if err:
+                raise AssertionError(f"rating kernel != plain: {inst} {flags} w={b.cols.shape[1]}")
+            rate_err = max(rate_err, err)
+        if timed is None:  # the clustering round's instantiation
+            timed = dict(args=args, ties=ties, flags=flags, L=L, maxw_len=int(maxw.numel()))
+        log(f"  rate {inst} external_only={ext} respect_caps={caps} {tie_break}: "
+            f"equal on {len(shapes)} buckets")
+
+    def kernel_pass():
+        for b, tie in zip(bv.buckets, timed["ties"]):
+            lp_kernels.rate_bucket(*timed["args"], b, tie, **timed["flags"])
+
+    def plain_pass():
+        labels, node_w, lw, maxw = timed["args"]
+        for b, tie in zip(bv.buckets, timed["ties"]):
+            bucketed_gains._bucket_moves(labels, b, node_w, lw, maxw, tie, **timed["flags"])
+
+    bound_ms, bound_by = bound(
+        rate_pass_bytes(bv, n_pad, timed["L"], timed["maxw_len"]), rate_pass_ops(bv))
+    rate = dict(
+        kernel="lp_rate", what="one rating pass over all buckets of the finest graph, "
+        "clustering instantiation", kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+        plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=rate_err,
+    )
+    log(json.dumps(rate))
+
+    # -- commit kernel: the clustering instantiation (n = L = n_pad, scalar
+    #    cap) and the refinement one (L = 64, cap table), radix and bitwise
+    n = n_pad
+    node_w = pv.node_w
+    ids = torch.cat([torch.arange(pv.n, dtype=torch.int32, device=device),
+                     torch.full((n_pad - pv.n,), pv.anchor, dtype=torch.int32, device=device)])
+    target, tconn, own = randint(0, pv.n, (n,)), randint(0, 8, (n,)), randint(0, 8, (n,))
+    prio = randint(0, (1 << 30) - 1, (n,))
+    act = torch.rand(n, generator=gen, device=device) < 0.5
+    Lr = lp.num_labels_bucket(k)
+    blocks = randint(0, k, (n,))
+    lw_r = torch.zeros(Lr, dtype=torch.int32, device=device).index_add_(0, blocks, node_w)
+    caps = torch.zeros(Lr, dtype=torch.int32, device=device)
+    caps[:k] = int(lw_r[:k].float().mean() * 1.01)
+    cases = [
+        ("cluster", ids, torch.zeros(n_pad, dtype=torch.int32, device=device).index_add_(
+            0, ids, node_w), torch.tensor(4, dtype=torch.int32, device=device), n_pad, target),
+        ("refine", blocks, lw_r, caps, Lr, torch.remainder(target, k)),
+    ]
+    commit_err, timed_commit = 0, None
+    for inst, lab, lw, maxw, L, tgt in cases:
+        for radix in (True, False):
+            call = (lp.LPState(lab, lw, None), tgt, tconn, own, node_w, maxw, L, prio, None, act)
+            opts = dict(active_prob=0.5, radix=radix)
+            ref = lp._commit_moves(*call, **opts)
+            out = lp_kernels.commit_moves(*call, **opts)
+            err = max_abs_err(ref, out)
+            if err:
+                raise AssertionError(f"commit kernel != plain: {inst} radix={radix}")
+            commit_err = max(commit_err, err)
+            log(f"  commit {inst} L={L} radix={radix}: equal (moved {int(out.num_moved)} of {n})")
+            if inst == "cluster" and radix == lp.use_radix_auction(L):
+                timed_commit = (call, opts, int(maxw.numel()))
+
+    call, opts, maxw_len = timed_commit
+    # Operations: the movers test and, per auction level, one digit test
+    # per node; a few per node in all, far below the byte time.
+    levels = 6 if opts["radix"] else 30
+    bound_ms, bound_by = bound(commit_bytes(n, n_pad, maxw_len, act=True, coin=False),
+                               n * (4 + 2 * levels))
+    commit = dict(
+        kernel="lp_commit", what=f"one commit at the finest level, clustering "
+        f"instantiation (n = L = {n}, {'radix' if opts['radix'] else 'bitwise'} auction)",
+        kernel_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20),
+        plain_ms=cuda_time_ms(lambda: lp._commit_moves(*call, **opts), iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=commit_err,
+    )
+    log(json.dumps(commit))
+    return rate, commit
+
+
+def phase_round_reference(device):
+    """One LP clustering round and one balancer round through the wrappers:
+    the kernels on the card against the plain versions on the CPU, with the
+    same draws (a small graph: the CPU side is slow)."""
+    import torch
+
+    from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.ops import lp
+    from kaminpar_tpu_torch.refinement import balancer
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        items = [None if v is None else to(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+    g = generators.rmat_graph(14, 16, seed=3)
+    pv, bv = g.padded(), g.bucketed()
+    dg = g.to(device)
+    dpv, dbv = dg.padded(), dg.bucketed()
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.cat([torch.arange(pv.n, dtype=torch.int32),
+                     torch.full((pv.n_pad - pv.n,), pv.anchor, dtype=torch.int32)])
+    draws = lp.draw_lp_round(gen, bv, pv.n_pad, active_prob=0.5)
+    cap = torch.tensor(40, dtype=torch.int32)
+    ref = lp.lp_round_bucketed(lp.init_state(ids, pv.node_w, pv.n_pad), draws, bv,
+                               pv.node_w, cap, num_labels=pv.n_pad, active_prob=0.5)
+    out = lp.lp_round_bucketed(lp.init_state(ids.to(device), dpv.node_w, pv.n_pad),
+                               to(draws), dbv, dpv.node_w, cap.to(device),
+                               num_labels=pv.n_pad, active_prob=0.5)
+    if max_abs_err(ref, out):
+        raise AssertionError("LP round on the card != plain round on the CPU")
+    k = 4
+    part = torch.zeros(pv.n_pad, dtype=torch.int32)
+    part[: pv.n] = torch.randint(0, 2, (pv.n,), generator=gen, dtype=torch.int32)
+    max_bw = torch.full((k,), int(g.total_node_weight / k * 1.03) + 1, dtype=torch.int32)
+    bdraws = balancer.draw_balance_round(gen, bv, pv.n_pad)
+    bref = balancer._balance_round(part, bdraws, bv, pv.node_w, max_bw, k=k)
+    bout = balancer._balance_round(part.to(device), to(bdraws), dbv, dpv.node_w,
+                                   max_bw.to(device), k=k)
+    if max_abs_err(bref, bout):
+        raise AssertionError("balancer round on the card != plain round on the CPU")
+    log(f"round reference: rmat_graph(14, 16, seed=3): one LP round (moved "
+        f"{int(out.num_moved)}) and one balancer round (moved {int(bout[1][0])}) on the "
+        f"card equal the plain rounds on the CPU")
+
+
+def phase_main_path(graph, k: int, eps: float):
+    import torch
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.utils import Logger, OutputLevel
+
+    Logger.level = OutputLevel.EXPERIMENT
+    solver = kp.KaMinPar("default")  # no device: cuda:0
+    solver.set_graph(graph)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lp_kernels.reset_launches()
+    t0 = time.perf_counter()
+    part = solver.compute_partition(k, epsilon=eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lp_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    p = solver.last_partition
+    cut = int(p.edge_cut())
+    bw = p.block_weights()
+    feasible = bool(p.is_feasible())
+    total_ew = graph.total_edge_weight // 2
+    part_info = solver.last_partitioner
+    info = dict(phase="main_path", n=graph.n, m=graph.m, k=k, epsilon=eps, cut=cut,
+                random_cut_expected=int(total_ew * (1 - 1 / k)), feasible=feasible,
+                max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
+                wall_s=wall, peak_bytes=peak, levels=part_info.num_levels,
+                phase_s=part_info.phase_seconds, launches=launches)
+    log(json.dumps(info))
+    if not feasible:
+        raise AssertionError("main path partition is infeasible")
+    if part.shape != (graph.n,) or bw.min() <= 0:
+        raise AssertionError("main path partition does not use all k blocks")
+    if cut >= 0.95 * total_ew * (1 - 1 / k):
+        raise AssertionError("main path cut is not clearly below a random partition's")
+    if launches["lp_rate"] <= 0 or launches["lp_commit"] <= 0:
+        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    return info
+
+
+def phase_small_reference():
+    """A small graph on the card and on the CPU (plain versions): both
+    feasible, cuts within 1.3x.  The two devices draw different random
+    streams, so the partitions differ."""
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.graph import generators
+
+    g = generators.rmat_graph(12, 8, seed=1)
+    cuts = {}
+    for dev in ("cuda", "cpu"):
+        solver = kp.KaMinPar("default", device=dev)
+        solver.set_graph(g)
+        solver.compute_partition(8)
+        if not solver.last_partition.is_feasible():
+            raise AssertionError(f"small reference infeasible on {dev}")
+        cuts[dev] = solver.last_partition.edge_cut()
+    ratio = cuts["cuda"] / max(cuts["cpu"], 1)
+    log(json.dumps(dict(phase="small_reference", graph="rmat_graph(12, 8, seed=1)", k=8,
+                        cut_cuda=cuts["cuda"], cut_cpu=cuts["cpu"], ratio=ratio)))
+    if not 1 / 1.3 <= ratio <= 1.3:
+        raise AssertionError(f"card and CPU cuts differ by more than 1.3x: {cuts}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=int, default=22, help="RMAT scale (2^scale nodes)")
+    args = ap.parse_args()
+
+    name, count, smi = phase_device()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from kaminpar_tpu_torch.graph import generators
+
+    phase_build()
+    t0 = time.perf_counter()
+    graph = generators.rmat_graph(args.scale, 16, seed=1)
+    log(f"graph: rmat_graph({args.scale}, 16, seed=1) n={graph.n} m={graph.m} "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    device = torch.device("cuda", 0)
+    work = finest_graph(graph, K, device)
+    rate, commit = phase_kernels(work, device, K)
+    del work
+    torch.cuda.empty_cache()
+    phase_round_reference(device)
+    info = phase_main_path(graph, K, EPSILON)
+    phase_small_reference()
+
+    kernels = []
+    for meas, source, replaces in ((rate, RATE_SOURCE, RATE_REPLACES),
+                                   (commit, COMMIT_SOURCE, COMMIT_REPLACES)):
+        kernels.append(dict(
+            name=meas["kernel"], route="cuda", source=source, replaces=replaces,
+            status="ported", launches=info["launches"][meas["kernel"]],
+            max_abs_err=meas["max_abs_err"], ms=meas["kernel_ms"],
+            plain_ms=meas["plain_ms"], bound_ms=meas["bound_ms"],
+            bound_by=meas["bound_by"], library_ms=meas["library_ms"],
+        ))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""Configuration tree of the port.
+
+A trimmed copy of ``kaminpar_tpu/context.py``: only the dataclasses and
+fields the ``default`` and ``fast`` presets read.  Defaults are the JAX
+package's.  There is no ``lp_kernel`` knob: the LP round runs the CUDA
+kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
+(``ops/lp_kernels.py``).  The initial bipartitioning pool is the host pool.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+
+class PartitioningMode(enum.Enum):
+    DEEP = "deep"
+
+
+class RefinementAlgorithm(enum.Enum):
+    NOOP = "noop"
+    LP = "lp"
+    OVERLOAD_BALANCER = "overload-balancer"
+    UNDERLOAD_BALANCER = "underload-balancer"
+
+
+class TieBreakingStrategy(enum.Enum):
+    """LP tie-breaking among equally rated labels: uniformly at random, or
+    the lightest label first (then at random)."""
+
+    UNIFORM = "uniform"
+    LIGHTEST = "lightest"
+
+
+class ClusterWeightLimit(enum.Enum):
+    EPSILON_BLOCK_WEIGHT = "epsilon-block-weight"
+    BLOCK_WEIGHT = "block-weight"
+    ONE = "one"
+    ZERO = "zero"
+
+
+@dataclass
+class LabelPropagationContext:
+    num_iterations: int = 5
+    tie_breaking: TieBreakingStrategy = TieBreakingStrategy.UNIFORM
+    # Stop sweeping once at most this fraction of the nodes moved.
+    min_moved_fraction: float = 0.001
+    cluster_isolated_nodes: bool = True
+    cluster_two_hop_nodes: bool = True
+    # Fraction of nodes allowed to move per synchronous round.
+    active_prob: float = 1.0
+    # Accept zero-gain moves with probability 1/2.
+    allow_tie_moves: bool = False
+    # Levels with average degree below the threshold sweep factor x longer.
+    low_degree_boost_threshold: float = 8.0
+    low_degree_boost_factor: int = 3
+    # Graphs with non-uniform edge weights: small active fraction, more
+    # sweeps.  ``weighted_mode`` None = detect from the coarsener's input.
+    weighted_active_prob: float = 0.1
+    weighted_sweep_factor: int = 6
+    weighted_mode: object = None
+
+
+@dataclass
+class CoarseningContext:
+    lp: LabelPropagationContext = field(
+        default_factory=lambda: LabelPropagationContext(active_prob=0.5)
+    )
+    # Deep mode coarsens until n <= 2 * contraction_limit.
+    contraction_limit: int = 2000
+    # Cluster weight additionally capped at max_shrink_factor x the average
+    # node weight (0 disables).
+    max_shrink_factor: float = 3.5
+    # Stop when a level shrinks by less than this fraction.
+    convergence_threshold: float = 0.05
+    cluster_weight_limit: ClusterWeightLimit = ClusterWeightLimit.EPSILON_BLOCK_WEIGHT
+    cluster_weight_multiplier: float = 1.0
+
+
+@dataclass
+class InitialPartitioningContext:
+    """The host bipartitioning pool + 2-way FM (``initial/bipartitioner.py``)."""
+
+    use_adaptive_epsilon: bool = True
+    min_num_repetitions: int = 4
+    max_num_repetitions: int = 12
+    use_adaptive_bipartitioner_selection: bool = True
+    enable_bfs_bipartitioner: bool = True
+    enable_ggg_bipartitioner: bool = True
+    enable_random_bipartitioner: bool = True
+    fm_num_iterations: int = 5
+    fm_alpha: float = 1.0
+    coarsening_contraction_limit: int = 20
+    coarsening_convergence_threshold: float = 0.05
+    # Extension splits into >= 4 parts on subgraphs at least this large run
+    # a nested deep pipeline; best of ``nested_extension_reps`` attempts.
+    nested_extension_n: int = 4096
+    nested_extension_reps: int = 2
+    # Up to this size, also run the flat pool and keep the better result.
+    flat_pool_fallback_n: int = 2048
+
+
+@dataclass
+class BalancerContext:
+    max_num_rounds: int = 8
+
+
+@dataclass
+class RefinementContext:
+    algorithms: tuple = (
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.LP,
+    )
+    lp: LabelPropagationContext = field(
+        default_factory=lambda: LabelPropagationContext(num_iterations=5)
+    )
+    balancer: BalancerContext = field(default_factory=BalancerContext)
+
+
+@dataclass
+class PartitionContext:
+    k: int = 2
+    epsilon: float = 0.03
+    max_block_weights: Optional[object] = None  # (k,) int64, set by setup()
+
+    def setup(self, total_node_weight: int, k: int, epsilon: float) -> None:
+        self.k = int(k)
+        self.epsilon = float(epsilon)
+        perfect = (total_node_weight + k - 1) // k
+        max_bw = int((1.0 + epsilon) * perfect)
+        self.max_block_weights = np.full(k, max(max_bw, perfect + 1), dtype=np.int64)
+
+
+@dataclass
+class Context:
+    preset_name: str = "default"
+    mode: PartitioningMode = PartitioningMode.DEEP
+    partition: PartitionContext = field(default_factory=PartitionContext)
+    coarsening: CoarseningContext = field(default_factory=CoarseningContext)
+    initial_partitioning: InitialPartitioningContext = field(
+        default_factory=InitialPartitioningContext
+    )
+    refinement: RefinementContext = field(default_factory=RefinementContext)
+    seed: int = 0
+
+
+__all__ = [
+    "BalancerContext", "ClusterWeightLimit",
+    "CoarseningContext", "Context", "InitialPartitioningContext",
+    "LabelPropagationContext", "PartitionContext", "PartitioningMode",
+    "RefinementAlgorithm", "RefinementContext", "TieBreakingStrategy",
+]

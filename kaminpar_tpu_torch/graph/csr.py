@@ -1,0 +1,265 @@
+"""CSR graph held in torch tensors.
+
+Counterpart of ``kaminpar_tpu/graph/csr.py``: four flat int32 arrays
+``(row_ptr, col_idx, node_w, edge_w)`` plus ``edge_u``, the source node of
+every CSR slot.  Every undirected edge is stored twice.  Graphs are built
+on the host (numpy in, CPU tensors) and moved to a device with
+:meth:`CSRGraph.to`.
+
+:class:`PaddedView` pads a graph onto the sqrt(2) shape ladder
+(``utils/intmath.next_shape_bucket``): pad nodes have weight 0 and degree
+0, except the last one (the anchor), which owns every pad edge; pad edges
+are weight-0 self-loops on the anchor.  Padding is therefore inert in
+ratings, cuts and contraction.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.intmath import next_shape_bucket
+
+IDX = torch.int32
+
+
+def _next_bucket(x: int, minimum: int = 256) -> int:
+    return next_shape_bucket(x, minimum)
+
+
+def _as_index_tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=IDX).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x), dtype=np.int32)).to(device)
+
+
+class PaddedView(NamedTuple):
+    row_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    node_w: torch.Tensor
+    edge_w: torch.Tensor
+    edge_u: torch.Tensor
+    n: int
+    m: int
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.row_ptr.shape[0]) - 1
+
+    @property
+    def m_pad(self) -> int:
+        return int(self.col_idx.shape[0])
+
+    @property
+    def anchor(self) -> int:
+        return self.n_pad - 1
+
+    def pad_node_array(self, arr: torch.Tensor, fill) -> torch.Tensor:
+        """Pad an (n,) array to (n_pad,) with ``fill``."""
+        arr = torch.as_tensor(arr, device=self.row_ptr.device)
+        pad = torch.full((self.n_pad - self.n,), fill, dtype=arr.dtype,
+                         device=arr.device)
+        return torch.cat([arr, pad])
+
+
+class CSRGraph:
+    def __init__(self, row_ptr, col_idx, node_w=None, edge_w=None, *,
+                 edge_u=None, device=None):
+        if device is None:
+            device = (row_ptr.device if isinstance(row_ptr, torch.Tensor)
+                      else torch.device("cpu"))
+        self.device = torch.device(device)
+        # Host copy of row_ptr when built from numpy: the layout plan and
+        # edge_u then need no device readback.
+        self._host_row_ptr = (
+            np.asarray(row_ptr, dtype=np.int64)
+            if not isinstance(row_ptr, torch.Tensor) else None
+        )
+        self.row_ptr = _as_index_tensor(row_ptr, self.device)
+        self.col_idx = _as_index_tensor(col_idx, self.device)
+        self.n = int(self.row_ptr.shape[0]) - 1
+        self.m = int(self.col_idx.shape[0])
+        self.node_w = (
+            torch.ones(self.n, dtype=IDX, device=self.device)
+            if node_w is None else _as_index_tensor(node_w, self.device)
+        )
+        self.edge_w = (
+            torch.ones(self.m, dtype=IDX, device=self.device)
+            if edge_w is None else _as_index_tensor(edge_w, self.device)
+        )
+        self.edge_u = (
+            _compute_edge_u(self.row_ptr, self._host_row_ptr, self.m)
+            if edge_u is None else _as_index_tensor(edge_u, self.device)
+        )
+        self._padded: Optional[PaddedView] = None
+        self._bucketed = None
+        self._total_node_weight: Optional[int] = None
+        self._max_node_weight: Optional[int] = None
+
+    def to(self, device) -> "CSRGraph":
+        """The same graph with its arrays on ``device``."""
+        g = CSRGraph.__new__(CSRGraph)
+        g.device = torch.device(device)
+        for attr in ("row_ptr", "col_idx", "node_w", "edge_w", "edge_u"):
+            setattr(g, attr, getattr(self, attr).to(g.device))
+        g.n, g.m = self.n, self.m
+        g._host_row_ptr = self._host_row_ptr
+        g._padded = None
+        g._bucketed = None
+        g._total_node_weight = self._total_node_weight
+        g._max_node_weight = self._max_node_weight
+        return g
+
+    def host_row_ptr(self) -> np.ndarray:
+        if self._host_row_ptr is None:
+            self._host_row_ptr = self.row_ptr.cpu().numpy().astype(np.int64)
+        return self._host_row_ptr
+
+    def padded(self) -> PaddedView:
+        if self._padded is None:
+            n_pad = _next_bucket(self.n)
+            m_pad = _next_bucket(self.m)
+            n_fill, m_fill = n_pad - self.n, m_pad - self.m
+            dev = self.device
+
+            def full(size, value):
+                return torch.full((size,), value, dtype=IDX, device=dev)
+
+            self._padded = PaddedView(
+                torch.cat([self.row_ptr, full(n_fill - 1, self.m), full(1, m_pad)]),
+                torch.cat([self.col_idx, full(m_fill, n_pad - 1)]),
+                torch.cat([self.node_w, full(n_fill, 0)]),
+                torch.cat([self.edge_w, full(m_fill, 0)]),
+                torch.cat([self.edge_u, full(m_fill, n_pad - 1)]),
+                self.n, self.m,
+            )
+        return self._padded
+
+    def bucketed(self):
+        """Degree-bucketed layout (cached), over the PaddedView's node space."""
+        if self._bucketed is None:
+            from .bucketed import build_bucketed_view
+
+            self._bucketed = build_bucketed_view(
+                self.host_row_ptr(), self.col_idx, self.edge_w, self.n,
+                self.padded().anchor,
+            )
+        return self._bucketed
+
+    @property
+    def total_node_weight(self) -> int:
+        if self._total_node_weight is None:
+            self._total_node_weight = int(self.node_w.sum(dtype=torch.int64))
+        return self._total_node_weight
+
+    @property
+    def max_node_weight(self) -> int:
+        if self._max_node_weight is None:
+            self._max_node_weight = int(self.node_w.max()) if self.n > 0 else 0
+        return self._max_node_weight
+
+    @property
+    def total_edge_weight(self) -> int:
+        return int(self.edge_w.sum(dtype=torch.int64))
+
+    def has_uniform_edge_weights(self) -> bool:
+        if self.m == 0:
+            return True
+        return bool(self.edge_w.min() == self.edge_w.max())
+
+    def __repr__(self):
+        return f"CSRGraph(n={self.n}, m={self.m}, device={self.device})"
+
+
+def _compute_edge_u(row_ptr: torch.Tensor, host_row_ptr, m: int) -> torch.Tensor:
+    """edge_u[e] = source node of CSR slot e."""
+    if m == 0:
+        return torch.zeros(0, dtype=IDX, device=row_ptr.device)
+    if host_row_ptr is not None:
+        deg = np.diff(host_row_ptr)
+        eu = np.repeat(np.arange(len(deg), dtype=np.int32), deg)
+        return torch.from_numpy(eu).to(row_ptr.device)
+    deg = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    n = int(deg.shape[0])
+    return torch.repeat_interleave(
+        torch.arange(n, dtype=IDX, device=row_ptr.device), deg
+    )
+
+
+def validate_csr_input(row_ptr, col_idx, node_w=None, edge_w=None) -> None:
+    """Reject malformed CSR input with a ``ValueError`` (structural
+    checks only, O(n + m) numpy)."""
+    rp = np.asarray(row_ptr)
+    col = np.asarray(col_idx)
+    if rp.ndim != 1 or rp.size < 1:
+        raise ValueError(f"row_ptr must be 1-D with n+1 entries, got {rp.shape}")
+    if col.ndim != 1:
+        raise ValueError(f"col_idx must be 1-D, got {col.shape}")
+    n, m = rp.size - 1, col.size
+    if rp[0] != 0 or int(rp[-1]) != m:
+        raise ValueError("row_ptr must start at 0 and end at len(col_idx)")
+    if n > 0 and np.any(np.diff(rp.astype(np.int64)) < 0):
+        raise ValueError("row_ptr is non-monotone")
+    if m > 0 and (int(col.min()) < 0 or int(col.max()) >= n):
+        raise ValueError(f"col_idx out of range for n={n}")
+    limit = np.iinfo(np.int32).max
+    if n > limit or m > limit:
+        raise ValueError("graph exceeds the int32 index space")
+    for name, w, count in (("node", node_w, n), ("edge", edge_w, m)):
+        if w is None:
+            continue
+        w = np.asarray(w)
+        if w.shape != (count,):
+            raise ValueError(f"{name}_weights must have shape ({count},)")
+        if w.size and (int(w.min()) < 0 or int(w.astype(np.int64).sum()) > limit):
+            raise ValueError(f"{name} weights must be >= 0 with an int32 total")
+
+
+def from_numpy_csr(row_ptr, col_idx, node_w=None, edge_w=None, *,
+                   validate_input: bool = False, device="cpu") -> CSRGraph:
+    if validate_input:
+        validate_csr_input(row_ptr, col_idx, node_w, edge_w)
+    return CSRGraph(
+        np.asarray(row_ptr, dtype=np.int64),
+        np.asarray(col_idx, dtype=np.int32),
+        None if node_w is None else np.asarray(node_w, dtype=np.int32),
+        None if edge_w is None else np.asarray(edge_w, dtype=np.int32),
+        device=device,
+    )
+
+
+def from_edge_list(n: int, edges, edge_weights=None, node_weights=None, *,
+                   symmetrize: bool = True, dedup: bool = True) -> CSRGraph:
+    """CSR graph from an (E, 2) undirected edge array, built on the host:
+    self-loops dropped, duplicate edges merged with summed weights."""
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    w = (
+        np.ones(len(edges), dtype=np.int64)
+        if edge_weights is None
+        else np.asarray(edge_weights, dtype=np.int64)
+    )
+    mask = edges[:, 0] != edges[:, 1]
+    edges, w = edges[mask], w[mask]
+    if symmetrize:
+        edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
+        w = np.concatenate([w, w])
+    if dedup and len(edges):
+        # Duplicates are merged whatever their order, so an unstable sort
+        # gives the same graph; the merged edges come out sorted by (u, v).
+        key = edges[:, 0] * n + edges[:, 1]
+        order = np.argsort(key)
+        key, edges, w = key[order], edges[order], w[order]
+        first = np.ones(len(key), dtype=bool)
+        first[1:] = key[1:] != key[:-1]
+        seg = np.cumsum(first) - 1
+        w = np.bincount(seg, weights=w, minlength=int(seg[-1]) + 1).astype(np.int64)
+        edges = edges[first]
+    else:
+        order = np.lexsort((edges[:, 1], edges[:, 0]))
+        edges, w = edges[order], w[order]
+    deg = np.bincount(edges[:, 0], minlength=n)
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    return from_numpy_csr(row_ptr, edges[:, 1], node_weights, w)

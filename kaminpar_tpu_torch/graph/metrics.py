@@ -1,0 +1,45 @@
+"""Partition quality metrics (counterpart of ``kaminpar_tpu/graph/metrics.py``):
+edge cut, block weights, imbalance, overload and feasibility."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .csr import CSRGraph
+
+
+def _labels(graph: CSRGraph, partition) -> torch.Tensor:
+    return torch.as_tensor(partition, device=graph.device).to(torch.int64)
+
+
+def block_weights(graph: CSRGraph, partition, k: int) -> np.ndarray:
+    """(k,) int64 host array of block weights."""
+    bw = torch.zeros(k, dtype=torch.int64, device=graph.device)
+    bw.index_add_(0, _labels(graph, partition), graph.node_w.to(torch.int64))
+    return bw.cpu().numpy()
+
+
+def edge_cut(graph: CSRGraph, partition) -> int:
+    """Total weight of cut edges, each undirected edge counted once."""
+    if graph.m == 0:
+        return 0
+    lab = _labels(graph, partition)
+    cut = lab[graph.edge_u.long()] != lab[graph.col_idx.long()]
+    return int(torch.where(cut, graph.edge_w.to(torch.int64), 0).sum()) // 2
+
+
+def imbalance(graph: CSRGraph, partition, k: int) -> float:
+    """max_b w(b) / ceil(W/k) - 1."""
+    bw = block_weights(graph, partition, k)
+    perfect = -(graph.total_node_weight // -k)
+    return float(bw.max() / perfect - 1.0) if perfect > 0 else 0.0
+
+
+def total_overload(graph: CSRGraph, partition, k: int, max_block_weights) -> int:
+    bw = block_weights(graph, partition, k)
+    return int(np.maximum(bw - np.asarray(max_block_weights, dtype=np.int64), 0).sum())
+
+
+def is_feasible(graph: CSRGraph, partition, k: int, max_block_weights) -> bool:
+    return total_overload(graph, partition, k, max_block_weights) == 0

@@ -1,0 +1,156 @@
+"""The ``KaMinPar`` facade, the port's public entry point (counterpart of
+``kaminpar_tpu/kaminpar.py``).
+
+It owns a graph and a :class:`Context`, sets up the block-weight limits,
+strips isolated nodes, runs the deep multilevel partitioner on its device
+and re-inserts the isolated nodes into the lightest blocks.  The device is
+``cuda:0`` unless the caller names another one; without CUDA the facade
+raises instead of running on the CPU.  Tests pass ``device="cpu"``, where
+every kernel wrapper takes its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .context import Context
+from .factories import create_partitioner
+from .graph.csr import CSRGraph, from_numpy_csr
+from .graph.isolated import assign_isolated_nodes, strip_isolated_csr
+from .graph.partitioned import PartitionedGraph
+from .presets import create_context_by_preset_name
+from .utils import Logger, RandomState, log_result_line
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "KaMinPar runs on cuda:0 by default and CUDA is not available; "
+                "pass device='cpu' to run the plain PyTorch versions"
+            )
+        return torch.device("cuda", 0)
+    return torch.device(device)
+
+
+class KaMinPar:
+    """Usage::
+
+        import kaminpar_tpu_torch as kp
+        solver = kp.KaMinPar("default")        # on cuda:0
+        solver.copy_graph(row_ptr, col_idx)    # numpy CSR
+        partition = solver.compute_partition(k=16, epsilon=0.03)
+    """
+
+    def __init__(self, ctx_or_preset: Union[Context, str] = "default", device=None):
+        if isinstance(ctx_or_preset, str):
+            ctx_or_preset = create_context_by_preset_name(ctx_or_preset)
+        self.ctx = ctx_or_preset
+        self.device = _resolve_device(device)
+        self.graph: Optional[CSRGraph] = None
+        self._last: Optional[PartitionedGraph] = None
+        # The partitioner of the last run (its phase times and level count).
+        self.last_partitioner = None
+
+    def set_graph(self, graph: CSRGraph) -> None:
+        self.graph = graph
+
+    def copy_graph(self, row_ptr: np.ndarray, col_idx: np.ndarray,
+                   node_weights: Optional[np.ndarray] = None,
+                   edge_weights: Optional[np.ndarray] = None) -> None:
+        """CSR input as numpy arrays, validated here."""
+        self.set_graph(from_numpy_csr(row_ptr, col_idx, node_weights, edge_weights,
+                                      validate_input=True))
+
+    def compute_partition(self, k: int, epsilon: float = 0.03,
+                          max_block_weights: Optional[Sequence[int]] = None,
+                          min_block_weights: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Partition into k blocks; returns the (n,) int32 block array.
+
+        Block weight limit: ``max((1+epsilon)*ceil(W/k), ceil(W/k) +
+        max_node_weight)`` per block, or the absolute ``max_block_weights``.
+        """
+        if self.graph is None:
+            raise ValueError("call set_graph or copy_graph first")
+        if min_block_weights is not None:
+            raise NotImplementedError("minimum block weights are not ported yet")
+        graph = self.graph
+        ctx = self.ctx
+        if k <= 0:
+            raise ValueError("k must be positive")
+        if k > max(graph.n, 1):
+            raise ValueError(f"k={k} exceeds number of nodes {graph.n}")
+
+        RandomState.reseed(ctx.seed)
+        start = time.perf_counter()
+        lp_ctx = ctx.coarsening.lp
+        pinned = lp_ctx.weighted_mode
+        try:
+            # The weighted clustering mode follows the user's graph, also in
+            # nested pipelines whose subgraphs carry accumulated weights.
+            if pinned is None and graph.m > 0:
+                lp_ctx.weighted_mode = not graph.has_uniform_edge_weights()
+            return self._partition(graph, k, epsilon, max_block_weights, start)
+        finally:
+            lp_ctx.weighted_mode = pinned
+
+    def _partition(self, graph: CSRGraph, k: int, epsilon: float,
+                   max_block_weights, start: float) -> np.ndarray:
+        ctx = self.ctx
+        total_node_weight = graph.total_node_weight
+        ctx.partition.setup(total_node_weight, k, epsilon)
+        if max_block_weights is not None:
+            max_bw = np.asarray(max_block_weights, dtype=np.int64)
+            if max_bw.shape != (k,):
+                raise ValueError(
+                    f"max_block_weights must have length k={k}, got {max_bw.shape}"
+                )
+            ctx.partition.max_block_weights = max_bw
+        else:
+            perfect = (total_node_weight + k - 1) // k
+            ctx.partition.max_block_weights = np.maximum(
+                ctx.partition.max_block_weights, perfect + graph.max_node_weight
+            )
+        max_bw = np.asarray(ctx.partition.max_block_weights, dtype=np.int64)
+        if graph.n == 0:
+            return np.zeros(0, dtype=np.int32)
+
+        # Strip isolated nodes on the host; they go to the lightest blocks
+        # afterwards.
+        row_ptr = graph.host_row_ptr()
+        node_w = graph.node_w.cpu().numpy()
+        stripped = strip_isolated_csr(row_ptr, lambda: graph.col_idx.cpu().numpy(),
+                                      node_w, graph.n, k)
+        edge_w = graph.edge_w.cpu().numpy()
+        if stripped is not None:
+            keep, isolated, new_rp, new_col, new_nw = stripped
+            work_graph = from_numpy_csr(new_rp, new_col, new_nw, edge_w,
+                                        device=self.device)
+            Logger.log(f"Removed {len(isolated)} isolated nodes")
+        else:
+            work_graph = from_numpy_csr(row_ptr, graph.col_idx.cpu().numpy(), node_w,
+                                        edge_w, device=self.device)
+
+        partitioner = create_partitioner(ctx, work_graph)
+        p_graph = partitioner.partition()
+        self.last_partitioner = partitioner
+        work_part = p_graph.partition.cpu().numpy().astype(np.int32)
+        if stripped is not None:
+            part = assign_isolated_nodes(
+                graph.n, k, keep, isolated, work_part, new_nw, node_w, max_bw
+            ).astype(np.int32)
+        else:
+            part = work_part
+        self._last = PartitionedGraph.create(graph, k, part, max_bw)
+        # Isolated nodes carry no edges: the work graph's cut is the cut.
+        log_result_line(p_graph.edge_cut(), self._last.imbalance(),
+                        self._last.is_feasible(), k, time.perf_counter() - start)
+        return part
+
+    @property
+    def last_partition(self) -> Optional[PartitionedGraph]:
+        return self._last

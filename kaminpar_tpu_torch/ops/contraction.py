@@ -1,0 +1,77 @@
+"""Cluster contraction as a stable sort-reduce (counterpart of
+``kaminpar_tpu/ops/contraction.py``).
+
+1. relabel-compact cluster ids (presence mask + prefix sum),
+2. map both edge endpoints to coarse ids, drop intra-cluster edges,
+3. stable sort by (coarse_u, coarse_v) and sum the weights of each run,
+4. compact the runs and build the coarse CSR.
+
+Deterministic, so it equals the JAX package array for array.  The labels
+cover the graph's PaddedView; pad nodes carry the anchor label and form the
+pure-padding cluster, always the last coarse id, which is dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..graph.csr import CSRGraph
+from .segment import run_ids, run_starts2, segment_sum
+
+
+def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
+    """Returns (coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr):
+    coarse ids over the padded node space (the last coarse id is the
+    padding cluster), compacted coarse edges sorted by (u, v), and the
+    coarse row_ptr over the first n_c + 1 entries."""
+    n = int(labels.shape[0])
+    dev = labels.device
+    present = torch.zeros(n, dtype=torch.int32, device=dev)
+    present[labels.long()] = 1
+    cmap = torch.cumsum(present, 0, dtype=torch.int32) - 1
+    coarse_of = cmap[labels]
+    n_c = int(present.sum())
+    c_node_w = segment_sum(node_w, coarse_of, n)
+
+    cu = coarse_of[edge_u]
+    cv = coarse_of[col_idx]
+    keep = cu != cv
+    # dropped edges sort last under the sentinel key n
+    ku = torch.where(keep, cu, torch.full_like(cu, n)).to(torch.int64)
+    kv = torch.where(keep, cv, torch.zeros_like(cv)).to(torch.int64)
+    order = torch.sort(ku * (n + 1) + kv, stable=True).indices
+    su, sv = ku[order], kv[order]
+    sw = torch.where(keep[order], edge_w[order], torch.zeros_like(edge_w[order]))
+    first = run_starts2(su, sv)
+    rid = run_ids(first)
+    run_w = segment_sum(sw, rid, int(edge_w.shape[0]))
+    valid = first & (su < n)
+    out_u = su[valid].to(torch.int32)
+    out_v = sv[valid].to(torch.int32)
+    out_w = run_w[rid[valid]]
+    deg_c = torch.bincount(out_u, minlength=n)
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(deg_c, 0)]).to(torch.int32)
+    return coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr
+
+
+def contract_clustering(graph: CSRGraph, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
+    """Contract a clustering (over ``graph.padded()``) into a coarse graph.
+    Returns ``(coarse_graph, coarse_of)`` with ``coarse_of[u]`` the coarse
+    node of fine node u (u < graph.n)."""
+    pv = graph.padded()
+    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr = _contract_core(
+        labels_padded, pv.edge_u, pv.col_idx, pv.edge_w, pv.node_w
+    )
+    n_c -= 1  # drop the pure-padding anchor cluster (always last)
+    coarse = CSRGraph(row_ptr[: n_c + 1], out_v, c_node_w[:n_c], out_w,
+                      edge_u=out_u, device=graph.device)
+    coarse._total_node_weight = graph._total_node_weight
+    return coarse, coarse_of[: graph.n]
+
+
+def project_partition(coarse_of: torch.Tensor, coarse_partition: torch.Tensor) -> torch.Tensor:
+    """fine_partition[u] = coarse_partition[coarse_of[u]]."""
+    return coarse_partition[coarse_of]

@@ -1,0 +1,155 @@
+"""Overload balancer: push weight out of overloaded blocks by relative gain
+(counterpart of ``kaminpar_tpu/refinement/balancer.py``).
+
+Bulk-synchronous rounds:
+
+1. every node of an overloaded block rates its best feasible external
+   block (the rating kernel with ``external_only`` and caps); without one
+   it falls back to the globally lightest block,
+2. per *source* block, movers are admitted in decreasing relative-gain
+   order until the overload is covered (a per-block gain threshold found
+   by bisection),
+3. per *target* block, admitted movers pass the same bisection as a strict
+   capacity check, so no receiver becomes overloaded.
+
+The random inputs of a round (the rating ties and the gain jitter) come in
+through :class:`BalanceDraws`.  The underload balancer is a no-op without
+minimum block weights, which are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..context import BalancerContext
+from ..graph.bucketed import BucketedView
+from ..graph.partitioned import PartitionedGraph
+from ..ops.bucketed_gains import bucketed_best_moves, draw_ties
+from ..ops.segment import first_argmin, segment_max, segment_min, segment_sum
+from ..utils import RandomState
+from .refiner import Refiner
+
+_NEG = -3.4e38
+_POS = 3.4e38
+
+
+class BalanceDraws(NamedTuple):
+    ties: Tuple[torch.Tensor, ...]  # per bucket (R, w) int32 in [0, 2^31-1)
+    heavy_tie: Optional[torch.Tensor]  # (S,) int32, None without heavy rows
+    jitter: torch.Tensor  # (n_pad,) float32 in [0, 1e-3)
+
+
+def draw_balance_round(gen: torch.Generator, bv: BucketedView, n_pad: int) -> BalanceDraws:
+    ties, heavy_tie = draw_ties(gen, bv)
+    jitter = torch.rand(n_pad, generator=gen, device=bv.gather_idx.device) * 1e-3
+    return BalanceDraws(ties, heavy_tie, jitter)
+
+
+def _admit_by_budget(mask, block_of, rel, node_w, budget, k: int, *, inclusive: bool):
+    """Per-block greedy admission by decreasing relative gain: bisect a
+    per-block threshold (24 rounds) to the lowest value whose admitted
+    weight fits the block's budget.  ``inclusive``: admitted weight never
+    exceeds the budget.  Otherwise the single best still-pending candidate
+    of every uncovered block is admitted as well, so each round covers
+    some overload."""
+    n = mask.shape[0]
+    dev = mask.device
+    zero = torch.zeros((), dtype=node_w.dtype, device=dev)
+    b_idx = torch.where(mask, block_of, torch.zeros_like(block_of))
+    w = torch.where(mask, node_w, zero)
+    lo = segment_min(torch.where(mask, rel, torch.full_like(rel, _POS)), b_idx, k)
+    hi = segment_max(torch.where(mask, rel, torch.full_like(rel, _NEG)), b_idx, k)
+    hi = hi + torch.clamp(hi.abs(), min=1.0) * 1e-3
+    for _ in range(24):
+        mid = 0.5 * (lo + hi)
+        adm = mask & (rel >= mid[b_idx])
+        fits = segment_sum(torch.where(adm, w, zero), b_idx, k) <= budget
+        lo, hi = torch.where(fits, lo, mid), torch.where(fits, mid, hi)
+    adm_lo = mask & (rel >= lo[b_idx])
+    d_lo = segment_sum(torch.where(adm_lo, w, zero), b_idx, k)
+    thr = torch.where(d_lo <= budget, lo, hi)
+    admitted = mask & (rel >= thr[b_idx])
+    if not inclusive:
+        adm_w = segment_sum(torch.where(admitted, w, zero), b_idx, k)
+        pend = mask & ~admitted & (adm_w < budget)[b_idx]
+        best = segment_max(torch.where(pend, rel, torch.full_like(rel, _NEG)), b_idx, k)
+        cand = pend & (rel == best[b_idx])
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        first_idx = segment_min(torch.where(cand, idx, torch.full_like(idx, n)), b_idx, k)
+        admitted = admitted | (cand & (idx == first_idx[b_idx]))
+    return admitted
+
+
+def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw, *,
+                   k: int):
+    """One round; returns ``(new_labels, flags)`` with ``flags`` =
+    (moved count, still overloaded) as one (2,) int32 tensor."""
+    zero = torch.zeros((), dtype=torch.int32, device=labels.device)
+    block_weights = segment_sum(node_w, labels, k)
+    target, tconn, oconn, has = bucketed_best_moves(
+        labels, bv, node_w, block_weights, max_bw, draws.ties, draws.heavy_tie,
+        external_only=True, respect_caps=True,
+    )
+    overloaded = block_weights > max_bw
+    mover = overloaded[labels] & (node_w > 0)  # weight-0 nodes are padding
+
+    # Movers without a feasible adjacent target fall back to the lightest block.
+    light = first_argmin(block_weights)
+    fallback_ok = block_weights[light] + node_w <= max_bw[light]
+    use_fb = mover & ~has & fallback_ok & (labels != light)
+    target = torch.where(use_fb, light.to(torch.int32), target)
+    tconn = torch.where(use_fb, zero, tconn)
+    eligible = mover & (has | use_fb)
+
+    gain = tconn - oconn
+    rel = gain.to(torch.float32) / torch.clamp(node_w, min=1).to(torch.float32)
+    # jitter scaled to the gain so it stays above one float32 ulp
+    rel = rel + draws.jitter * torch.clamp(rel.abs(), min=1.0)
+
+    overload = torch.clamp(block_weights - max_bw, min=0)
+    src_ok = _admit_by_budget(eligible, labels, rel, node_w, overload, k, inclusive=False)
+    admitted = eligible & src_ok
+    tgt_ok = _admit_by_budget(admitted, target, rel, node_w,
+                              torch.clamp(max_bw - block_weights, min=0), k,
+                              inclusive=True)
+    commit = admitted & tgt_ok
+    new_labels = torch.where(commit, target, labels)
+    still = (segment_sum(node_w, new_labels, k) > max_bw).any()
+    flags = torch.stack([commit.sum(dtype=torch.int32), still.to(torch.int32)])
+    return new_labels, flags
+
+
+class OverloadBalancer(Refiner):
+    def __init__(self, ctx: BalancerContext):
+        self.ctx = ctx
+
+    def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
+        graph = p_graph.graph
+        pv = graph.padded()
+        bv = graph.bucketed()
+        max_bw = torch.as_tensor(p_graph.max_block_weights, dtype=torch.int32,
+                                 device=graph.device)
+        labels = pv.pad_node_array(p_graph.partition, 0)
+        gen = RandomState.generator(graph.device)
+        for _ in range(self.ctx.max_num_rounds):
+            labels, flags = _balance_round(
+                labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
+                max_bw, k=p_graph.k,
+            )
+            num_moved, still = flags.tolist()
+            if not still or num_moved == 0:
+                break
+        return p_graph.with_partition(labels[: pv.n])
+
+
+class UnderloadBalancer(Refiner):
+    """A no-op without minimum block weights, which the port does not take
+    yet (the facade rejects them)."""
+
+    def __init__(self, ctx: BalancerContext):
+        self.ctx = ctx
+
+    def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
+        return p_graph

@@ -1,0 +1,45 @@
+"""LP refiner: the LP engine with blocks as labels (counterpart of the
+dense branch of ``kaminpar_tpu/refinement/lp_refiner.py``).
+
+The label space is padded to ``num_labels_bucket(k)``: pad labels carry
+weight 0 and cap 0 and are adjacent to nothing, so they are inert.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..context import LabelPropagationContext
+from ..graph.partitioned import PartitionedGraph
+from ..ops import lp
+from ..utils import RandomState
+from .refiner import Refiner
+
+
+class LPRefiner(Refiner):
+    def __init__(self, ctx: LabelPropagationContext):
+        self.ctx = ctx
+
+    def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
+        graph = p_graph.graph
+        pv = graph.padded()
+        bv = graph.bucketed()
+        k = p_graph.k
+        k_pad = lp.num_labels_bucket(k)
+        part = pv.pad_node_array(p_graph.partition, 0)  # pads are inert (w=0)
+        state = lp.init_state(part, pv.node_w, k_pad)
+        max_w = torch.zeros(k_pad, dtype=torch.int32, device=graph.device)
+        max_w[:k] = torch.as_tensor(p_graph.max_block_weights, dtype=torch.int32)
+        gen = RandomState.generator(graph.device)
+        active_prob = self.ctx.active_prob
+        allow_tie_moves = self.ctx.allow_tie_moves
+        state = lp.lp_iterate_bucketed(
+            state,
+            lambda _: lp.draw_lp_round(gen, bv, pv.n_pad, active_prob=active_prob,
+                                       allow_tie_moves=allow_tie_moves),
+            bv, pv.node_w, max_w,
+            int(self.ctx.min_moved_fraction * pv.n), self.ctx.num_iterations,
+            num_labels=k_pad, active_prob=active_prob,
+            allow_tie_moves=allow_tie_moves,
+        )
+        return p_graph.with_partition(state.labels[: pv.n])

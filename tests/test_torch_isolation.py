@@ -1,0 +1,60 @@
+"""The port stands alone: no module of ``kaminpar_tpu_torch`` nor
+``chip_smoke.py`` imports jax or the JAX package, and the package
+partitions a graph while ``jax`` cannot be imported at all."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "kaminpar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_or_jax_package_imports():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(PORT_FILES) > 20
+    bad = []
+    for path in PORT_FILES:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "kaminpar_tpu"):
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+        text = path.read_text()
+        for needle in ("import jax", "from jax", "kaminpar_tpu.", "from kaminpar_tpu "):
+            if needle in text:
+                bad.append(f"{path.relative_to(ROOT)}: text {needle!r}")
+    assert not bad, bad
+
+
+def test_partitions_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kaminpar_tpu'] = None\n"
+        "import kaminpar_tpu_torch as kp\n"
+        "from kaminpar_tpu_torch.graph import generators\n"
+        "g = generators.grid2d_graph(12, 12)\n"
+        "s = kp.KaMinPar('fast', device='cpu')\n"
+        "s.set_graph(g)\n"
+        "part = s.compute_partition(2)\n"
+        "assert s.last_partition.is_feasible() and part.shape == (144,)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
