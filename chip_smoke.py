@@ -4,23 +4,42 @@
     python3 chip_smoke.py                 # RMAT scale 22, k = 16, cuda:0
     python3 chip_smoke.py --scale 16      # a quicker run
 
-Phases, each of which fails the run when it fails:
+``rmat_graph(scale, 16, seed=1)`` is generated once.  Phases, each of
+which fails the run when it fails:
 
 1. device: the card's name, the device count and its power limit;
-2. build: nvcc compiles the two LP kernels from ``kaminpar_tpu_torch/csrc``;
-3. kernels: on the finest graph's degree-bucketed layout (the shapes the
-   main path gives them) each kernel is compared with its plain PyTorch
-   version on the same inputs on the card (exact equality: all values are
-   integers) and timed against it; then, on a small graph, one whole LP
-   round and one balancer round on the card are compared with the plain
-   rounds on the CPU, with the same draws;
-4. main path: ``KaMinPar("default").compute_partition(k)`` on the card,
-   with the kernels' launch counters set to 0 just before and read just
-   after; the partition must be feasible, use all k blocks and cut less
-   than 0.95x the edge weight a random partition cuts (RMAT graphs are
-   expander-like: at scale 22 a good k=16 cut is about 0.9x random), and
-   both kernels must have run;
-5. a small graph partitioned on the card and on the CPU: both feasible,
+2. build: nvcc compiles the LP kernels from ``kaminpar_tpu_torch/csrc``;
+3. compressed kernel: the graph is compressed as ``KaMinPar("terapart")``
+   compresses it, and the decode-fused rating kernel is compared with its
+   plain version (decode, then rate) on every bucket of its
+   ``DeviceCompressedView``, for its own stream, the same structure
+   unweighted and with numpy-random weights, and timed; then the commit
+   kernel at the view's level-0 clustering shape (the isolated nodes stay
+   in, so ``L = n_pad`` picks the auction), compared and timed.  All
+   comparisons on the card, exact (all values are integers);
+4. terapart path: ``KaMinPar("terapart").compute_partition(k)`` on that
+   graph, with the launch counters set to 0 just before and read just
+   after and the host decompress refused; the partition must be feasible
+   and every kernel must have run, the compressed one included.  Peak
+   device memory is read per clustering, contraction and re-decode call
+   and between them;
+5. ``device_decode`` "off" against "finest" on ``rmat_graph(scale - 4)``
+   into ``OFF_FINEST_K`` blocks: equal partitions;
+6. kernels of the default path: on the degree-bucketed layout of
+   ``rmat_graph(scale - 2)`` with its isolated nodes stripped (the shapes
+   that path gives them) the dense rating kernel and the commit kernel
+   are compared with their plain versions and timed; then, on a small
+   graph, one whole LP round and one balancer round on the card are
+   compared with the plain rounds on the CPU, with the same draws;
+7. default path: ``KaMinPar("default").compute_partition(k)`` on
+   ``rmat_graph(scale - 2)``, counters and peaks as in 4; the partition
+   must be feasible, use all k blocks and cut less than 0.95x the edge
+   weight a random partition cuts (RMAT graphs are expander-like: a good
+   k=16 cut is about 0.9x random), and both dense-path kernels must have
+   run.  Both paths run below the terapart path's scale to keep the run
+   inside its time limit: their host-side initial partitioning and
+   extension take minutes (PERF.md);
+8. a small graph partitioned on the card and on the CPU: both feasible,
    cuts within 1.3x of each other.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` line, the
@@ -47,8 +66,12 @@ SCALAR_OPS_PER_S = 67e12
 RATE_SOURCE = "kaminpar_tpu_torch/csrc/lp_rate.cu"
 COMMIT_SOURCE = "kaminpar_tpu_torch/csrc/lp_commit.cu"
 RATE_REPLACES = "kaminpar_tpu/ops/pallas_lp.py:245"
+RATE_COMPRESSED_REPLACES = "kaminpar_tpu/ops/pallas_lp.py:370"
 COMMIT_REPLACES = "kaminpar_tpu/ops/pallas_lp.py:654"
 K, EPSILON = 16, 0.03  # BASELINE.md config 2: RMAT scale 22, k = 16
+# Fewer blocks than K keep the two whole runs of the comparison short (the
+# host-side extension grows with the number of blocks).
+OFF_FINEST_K = 4
 
 
 def log(msg: str) -> None:
@@ -82,6 +105,70 @@ def max_abs_err(ref, out) -> int:
         d = (r.cpu().to(torch.int64) - o.cpu().to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+class PeakTracker:
+    """Peak device memory of a run, split by the calls that may set it:
+    the LP clustering of each level, the contractions (level 0 off the
+    compressed stream or dense) and the finest level's re-decode.  Each
+    such call is bracketed by a synchronize and a reset of the peak
+    statistic, so the run's peak is the largest of the per-segment peaks;
+    ``outside`` is the largest peak between the calls."""
+
+    TARGETS = (
+        ("kaminpar_tpu_torch.coarsening.lp_clusterer", "LPClustering", "compute_clustering"),
+        ("kaminpar_tpu_torch.coarsening.cluster_coarsener", None, "contract_compressed"),
+        ("kaminpar_tpu_torch.coarsening.cluster_coarsener", None, "contract_clustering"),
+        ("kaminpar_tpu_torch.graph.device_compressed", "DeviceCompressedView",
+         "materialize_csr"),
+    )
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.calls, self.outside, self._saved = [], 0, []
+        for module, cls, name in self.TARGETS:
+            owner = importlib.import_module(module)
+            owner = getattr(owner, cls) if cls else owner
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            self.outside = max(self.outside, torch.cuda.max_memory_allocated())
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                call=name, n=next((a.n for a in args if hasattr(a, "n")), None),
+                before=before, peak=torch.cuda.max_memory_allocated(),
+                after=torch.cuda.memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.outside = max(self.outside, torch.cuda.max_memory_allocated())
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    @property
+    def peak(self) -> int:
+        return max([self.outside] + [c["peak"] for c in self.calls])
 
 
 def phase_device():
@@ -142,13 +229,12 @@ def rate_pass_bytes(bv, n_pad: int, L: int, maxw_len: int) -> int:
     return total
 
 
-def rate_pass_ops(bv) -> int:
-    """Integer operations one rating pass must do at the least: the
-    compare-exchanges of a bitonic sort of every row, and one add and one
-    max per slot for the run reduction."""
+def rate_pass_ops(shapes) -> int:
+    """Integer operations one rating pass over buckets of these (R, w)
+    shapes must do at the least: the compare-exchanges of a bitonic sort of
+    every row, and one add and one max per slot for the run reduction."""
     total = 0
-    for b in bv.buckets:
-        R, w = b.cols.shape
+    for R, w in shapes:
         lg = w.bit_length() - 1
         total += R * (w // 2) * lg * (lg + 1) // 2 + 2 * R * w
     return total
@@ -163,6 +249,40 @@ def bound(nbytes: int, ops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The rating kernels' inputs as the path gives them: (instantiation,
+# external_only, respect_caps, tie_break) of the clustering round, the
+# two-hop pass, LP refinement and the balancer, with both tie-breaks.
+RATE_CONFIGS = [
+    ("cluster", False, True, "uniform"),
+    ("cluster", False, True, "lightest"),
+    ("cluster", False, False, "uniform"),
+    ("refine", False, True, "uniform"),
+    ("refine", True, True, "uniform"),
+    ("refine", False, True, "lightest"),
+]
+
+
+def rating_tables(inst: str, node_w, k: int, randint):
+    """Random labels, their label weights and the cap of one rating
+    instantiation: clustering (``L = n_pad``, a scalar cap near the median
+    cluster weight) or refinement (``L = num_labels_bucket(k)``, a cap
+    table 3% above the mean block weight); returns (labels, lw, maxw, L)."""
+    import torch
+
+    from kaminpar_tpu_torch.ops import lp
+
+    n_pad, device = int(node_w.shape[0]), node_w.device
+    L = n_pad if inst == "cluster" else lp.num_labels_bucket(k)
+    labels = randint(0, max(n_pad // 3, 1) if inst == "cluster" else k, (n_pad,))
+    lw = torch.zeros(L, dtype=torch.int32, device=device).index_add_(0, labels, node_w)
+    if inst == "cluster":
+        maxw = (lw[lw > 0].float().median().int() + 1).to(torch.int32)
+    else:
+        maxw = torch.zeros(L, dtype=torch.int32, device=device)
+        maxw[:k] = int(lw[:k].float().mean() * 1.03)
+    return labels, lw, maxw, L
 
 
 def phase_kernels(work, device, k: int):
@@ -186,24 +306,9 @@ def phase_kernels(work, device, k: int):
     # -- rating kernel: both instantiations, every flag combination the
     #    path uses, both tie-breaks, every bucket -----------------------
     rate_err = 0
-    configs = [
-        ("cluster", False, True, "uniform"),
-        ("cluster", False, True, "lightest"),
-        ("cluster", False, False, "uniform"),
-        ("refine", False, True, "uniform"),
-        ("refine", True, True, "uniform"),
-        ("refine", False, True, "lightest"),
-    ]
     timed = None
-    for inst, ext, caps, tie_break in configs:
-        L = n_pad if inst == "cluster" else lp.num_labels_bucket(k)
-        labels = randint(0, max(n_pad // 3, 1) if inst == "cluster" else k, (n_pad,))
-        lw = torch.zeros(L, dtype=torch.int32, device=device).index_add_(0, labels, pv.node_w)
-        if inst == "cluster":
-            maxw = (lw[lw > 0].float().median().int() + 1).to(torch.int32)
-        else:
-            maxw = torch.zeros(L, dtype=torch.int32, device=device)
-            maxw[:k] = int(lw[:k].float().mean() * 1.03)
+    for inst, ext, caps, tie_break in RATE_CONFIGS:
+        labels, lw, maxw, L = rating_tables(inst, pv.node_w, k, randint)
         ties = [randint(0, 2**31 - 1, s) for s in shapes]
         args = (labels, pv.node_w, lw, maxw)
         flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
@@ -229,7 +334,8 @@ def phase_kernels(work, device, k: int):
             bucketed_gains._bucket_moves(labels, b, node_w, lw, maxw, tie, **timed["flags"])
 
     bound_ms, bound_by = bound(
-        rate_pass_bytes(bv, n_pad, timed["L"], timed["maxw_len"]), rate_pass_ops(bv))
+        rate_pass_bytes(bv, n_pad, timed["L"], timed["maxw_len"]),
+        rate_pass_ops(bv.bucket_shapes))
     rate = dict(
         kernel="lp_rate", what="one rating pass over all buckets of the finest graph, "
         "clustering instantiation", kernel_ms=cuda_time_ms(kernel_pass, iters=20),
@@ -242,51 +348,268 @@ def phase_kernels(work, device, k: int):
     #    cap) and the refinement one (L = 64, cap table), radix and bitwise
     n = n_pad
     node_w = pv.node_w
-    ids = torch.cat([torch.arange(pv.n, dtype=torch.int32, device=device),
-                     torch.full((n_pad - pv.n,), pv.anchor, dtype=torch.int32, device=device)])
-    target, tconn, own = randint(0, pv.n, (n,)), randint(0, 8, (n,)), randint(0, 8, (n,))
-    prio = randint(0, (1 << 30) - 1, (n,))
-    act = torch.rand(n, generator=gen, device=device) < 0.5
+    cluster_call = clustering_commit_call(node_w, pv.n, pv.anchor, randint, gen)
+    _, target, tconn, own, _, _, _, prio, _, act = cluster_call
     Lr = lp.num_labels_bucket(k)
     blocks = randint(0, k, (n,))
     lw_r = torch.zeros(Lr, dtype=torch.int32, device=device).index_add_(0, blocks, node_w)
     caps = torch.zeros(Lr, dtype=torch.int32, device=device)
     caps[:k] = int(lw_r[:k].float().mean() * 1.01)
-    cases = [
-        ("cluster", ids, torch.zeros(n_pad, dtype=torch.int32, device=device).index_add_(
-            0, ids, node_w), torch.tensor(4, dtype=torch.int32, device=device), n_pad, target),
-        ("refine", blocks, lw_r, caps, Lr, torch.remainder(target, k)),
-    ]
-    commit_err, timed_commit = 0, None
-    for inst, lab, lw, maxw, L, tgt in cases:
+    refine_call = (lp.LPState(blocks, lw_r, None), torch.remainder(target, k), tconn, own,
+                   node_w, caps, Lr, prio, None, act)
+    commit_err = 0
+    for inst, call in (("cluster", cluster_call), ("refine", refine_call)):
         for radix in (True, False):
-            call = (lp.LPState(lab, lw, None), tgt, tconn, own, node_w, maxw, L, prio, None, act)
-            opts = dict(active_prob=0.5, radix=radix)
-            ref = lp._commit_moves(*call, **opts)
-            out = lp_kernels.commit_moves(*call, **opts)
-            err = max_abs_err(ref, out)
-            if err:
-                raise AssertionError(f"commit kernel != plain: {inst} radix={radix}")
-            commit_err = max(commit_err, err)
-            log(f"  commit {inst} L={L} radix={radix}: equal (moved {int(out.num_moved)} of {n})")
-            if inst == "cluster" and radix == lp.use_radix_auction(L):
-                timed_commit = (call, opts, int(maxw.numel()))
+            commit_err = max(commit_err, check_commit(inst, call, radix))
+    commit = time_commit(cluster_call, commit_err, "the finest level of the default path")
+    return rate, commit
 
-    call, opts, maxw_len = timed_commit
+
+def clustering_commit_call(node_w, n: int, anchor: int, randint, gen):
+    """Inputs of one commit of the clustering instantiation over ``n_pad =
+    len(node_w)`` nodes: labels are node ids (pad nodes on the anchor),
+    ``L = n_pad``, a scalar cap of 4, random targets and priorities, half
+    the nodes active."""
+    import torch
+
+    from kaminpar_tpu_torch.ops import lp
+
+    n_pad, device = int(node_w.shape[0]), node_w.device
+    ids = torch.cat([torch.arange(n, dtype=torch.int32, device=device),
+                     torch.full((n_pad - n,), anchor, dtype=torch.int32, device=device)])
+    lw = torch.zeros(n_pad, dtype=torch.int32, device=device).index_add_(0, ids, node_w)
+    target, tconn, own = randint(0, n, (n_pad,)), randint(0, 8, (n_pad,)), randint(0, 8, (n_pad,))
+    prio = randint(0, (1 << 30) - 1, (n_pad,))
+    act = torch.rand(n_pad, generator=gen, device=device) < 0.5
+    maxw = torch.tensor(4, dtype=torch.int32, device=device)
+    return (lp.LPState(ids, lw, None), target, tconn, own, node_w, maxw, n_pad, prio, None, act)
+
+
+def check_commit(inst: str, call, radix: bool) -> int:
+    """The commit kernel against its plain version on ``call``; raises on
+    any difference."""
+    from kaminpar_tpu_torch.ops import lp, lp_kernels
+
+    opts = dict(active_prob=0.5, radix=radix)
+    out = lp_kernels.commit_moves(*call, **opts)
+    err = max_abs_err(lp._commit_moves(*call, **opts), out)
+    if err:
+        raise AssertionError(f"commit kernel != plain: {inst} radix={radix}")
+    log(f"  commit {inst} n={int(call[4].shape[0])} L={call[6]} radix={radix}: equal "
+        f"(moved {int(out.num_moved)})")
+    return err
+
+
+def time_commit(call, err: int, where: str) -> dict:
+    """The commit kernel and its plain version timed on a clustering
+    instantiation ``call``, with the auction the path picks for its L."""
+    from kaminpar_tpu_torch.ops import lp, lp_kernels
+
+    n, L = int(call[4].shape[0]), call[6]
+    opts = dict(active_prob=0.5, radix=lp.use_radix_auction(L))
     # Operations: the movers test and, per auction level, one digit test
     # per node; a few per node in all, far below the byte time.
     levels = 6 if opts["radix"] else 30
-    bound_ms, bound_by = bound(commit_bytes(n, n_pad, maxw_len, act=True, coin=False),
+    bound_ms, bound_by = bound(commit_bytes(n, L, int(call[5].numel()), act=True, coin=False),
                                n * (4 + 2 * levels))
-    commit = dict(
-        kernel="lp_commit", what=f"one commit at the finest level, clustering "
-        f"instantiation (n = L = {n}, {'radix' if opts['radix'] else 'bitwise'} auction)",
+    meas = dict(
+        kernel="lp_commit", what=f"one commit at {where}, clustering instantiation "
+        f"(n = L = {n}, {'radix' if opts['radix'] else 'bitwise'} auction)",
         kernel_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20),
         plain_ms=cuda_time_ms(lambda: lp._commit_moves(*call, **opts), iters=3, warmup=1),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=commit_err,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err,
     )
-    log(json.dumps(commit))
-    return rate, commit
+    log(json.dumps(meas))
+    return meas
+
+
+def compressed_pass_bytes(cg, cv, L: int, maxw_len: int) -> int:
+    """Bytes one compressed rating pass must move: each input read once
+    (the label, node-weight, label-weight and cap tables; per bucket row
+    its node, word start, width, degree and edge start; the tie matrix;
+    the stream words and, when weighted, the edge weights of the bucketed
+    nodes) and each output written once."""
+    import numpy as np
+
+    light = cg.degree <= 4096  # heavy rows take the flat path, not the kernel
+    words = np.diff(cg.word_start.astype(np.int64))[light].sum()
+    edges = cg.degree[light].astype(np.int64).sum()
+    total = 4 * (2 * cv.n_pad + L + maxw_len) + 4 * int(words)
+    total += 4 * int(edges) if cv.stream.weighted else 0
+    for R, w in cv.bucket_shapes:
+        total += 5 * 4 * R + 4 * R * w + R * (3 * 4 + 1)
+    return total
+
+
+def compressed_pass_ops(cg, cv) -> int:
+    """The dense pass's operations plus, per real slot, the least decode
+    work: a funnel shift, a mask, the zig-zag decode (shift, and, xor) and
+    the cumsum add."""
+    edges = int(cg.degree[cg.degree <= 4096].astype("int64").sum())
+    return rate_pass_ops(cv.bucket_shapes) + 6 * edges
+
+
+def phase_compressed_kernel(cg, device, k: int):
+    """The decode-fused rating kernel against its plain version, both on the
+    card, on every bucket of the compressed view of ``cg`` (the view the
+    terapart path builds), for its own stream, the same structure
+    unweighted and with numpy-random weights; then the commit kernel at the
+    view's level-0 clustering shape.  Returns both measurements."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
+    from kaminpar_tpu_torch.ops import lp, lp_kernels
+
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    variants = [
+        ("own", cg),
+        ("unweighted", dataclasses.replace(cg, edge_w=None)),
+        ("numpy-weights", dataclasses.replace(cg, edge_w=np.random.default_rng(11).integers(
+            1, 100, cg.m, dtype=np.int32))),
+    ]
+    err_max, meas = 0, None
+    for vname, vcg in variants:
+        cv = DeviceCompressedView(vcg, device)
+        n_pad = cv.n_pad
+        if meas is None:
+            log(f"compressed kernel: n={cv.n} m={cv.m} n_pad={n_pad}; buckets (R, w): "
+                f"{list(cv.bucket_shapes)}; heavy rows {int(cv.heavy.nodes.shape[0])}; "
+                f"resident {cv.resident_bytes()} B vs dense {cv.dense_resident_bytes()} B")
+        timed = None
+        for inst, ext, caps, tie_break in RATE_CONFIGS:
+            labels, lw, maxw, L = rating_tables(inst, cv.node_w_pad, k, randint)
+            ties = [randint(0, 2**31 - 1, shape) for shape in cv.bucket_shapes]
+            args = (labels, cv.node_w_pad, lw, maxw)
+            flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
+            for cb, tie in zip(cv.buckets, ties):
+                ref = lp_kernels.rate_compressed_bucket_plain(*args, cv.stream, cb, tie, **flags)
+                out = lp_kernels.rate_compressed_bucket(*args, cv.stream, cb, tie, **flags)
+                err = max_abs_err(ref, out)
+                if err:
+                    raise AssertionError(
+                        f"compressed rating kernel != plain: {vname} {inst} {flags} w={cb.w}")
+                err_max = max(err_max, err)
+            if timed is None:
+                timed = dict(args=args, ties=ties, flags=flags, L=L, maxw_len=int(maxw.numel()))
+        log(f"  rate_compressed {vname} stream (weighted={cv.stream.weighted}): equal on "
+            f"{len(cv.buckets)} buckets for {len(RATE_CONFIGS)} configurations")
+        if meas is None:  # the terapart path's own stream, clustering instantiation
+
+            def kernel_pass():
+                for cb, tie in zip(cv.buckets, timed["ties"]):
+                    lp_kernels.rate_compressed_bucket(*timed["args"], cv.stream, cb, tie,
+                                                      **timed["flags"])
+
+            def plain_pass():
+                for cb, tie in zip(cv.buckets, timed["ties"]):
+                    lp_kernels.rate_compressed_bucket_plain(*timed["args"], cv.stream, cb,
+                                                            tie, **timed["flags"])
+
+            bound_ms, bound_by = bound(
+                compressed_pass_bytes(vcg, cv, timed["L"], timed["maxw_len"]),
+                compressed_pass_ops(vcg, cv))
+            meas = dict(
+                kernel="lp_rate_compressed", what="one compressed rating pass over all "
+                "buckets of the finest graph, clustering instantiation, its own stream",
+                kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+                plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            )
+            # The commit at the level-0 clustering of the terapart path: the
+            # isolated nodes stay in, so L = n_pad picks the auction there.
+            call = clustering_commit_call(cv.node_w_pad, cv.n, cv.anchor, randint, gen)
+            err = check_commit("cluster, terapart level 0", call, lp.use_radix_auction(cv.n_pad))
+            commit = time_commit(call, err, "terapart level 0")
+            del call
+        del cv, timed
+        torch.cuda.empty_cache()
+    meas["max_abs_err"] = err_max
+    log(json.dumps(meas))
+    return meas, commit
+
+
+def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
+    """``compute_partition`` of the terapart solver (the graph already set
+    and compressed), with the host decompress refused."""
+    import torch
+
+    from kaminpar_tpu_torch.graph.compressed import CompressedGraph
+    from kaminpar_tpu_torch.ops import lp_kernels
+
+    def refuse(self, device="cpu"):
+        raise AssertionError("the terapart path decompressed on the host")
+
+    host_decompress = CompressedGraph.decompress
+    CompressedGraph.decompress = refuse
+    try:
+        with PeakTracker() as mem:
+            lp_kernels.reset_launches()
+            t0 = time.perf_counter()
+            part = solver.compute_partition(k, epsilon=eps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(lp_kernels.LAUNCHES)
+    finally:
+        CompressedGraph.decompress = host_decompress
+    p = solver.last_partition
+    cv = solver.last_partitioner.compressed_view
+    cut = int(p.edge_cut())
+    bw = p.block_weights()
+    feasible = bool(p.is_feasible())
+    total_ew = graph.total_edge_weight // 2
+    info = dict(phase="terapart_path", n=graph.n, m=graph.m, k=k, epsilon=eps, cut=cut,
+                random_cut_expected=int(total_ew * (1 - 1 / k)), feasible=feasible,
+                max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
+                wall_s=wall, compress_s=compress_s, peak_bytes=mem.peak,
+                peak_outside_bytes=mem.outside, peak_calls=mem.calls,
+                resident_bytes=cv.resident_bytes(),
+                dense_resident_bytes=cv.dense_resident_bytes(),
+                compressed_host_bytes=solver.compressed_graph.memory_bytes(),
+                levels=solver.last_partitioner.num_levels,
+                phase_s=solver.last_partitioner.phase_seconds, launches=launches)
+    log(json.dumps(info))
+    if not feasible:
+        raise AssertionError("terapart partition is infeasible")
+    if part.shape != (graph.n,) or bw.min() <= 0:
+        raise AssertionError("terapart partition does not use all k blocks")
+    if cut >= 0.95 * total_ew * (1 - 1 / k):
+        raise AssertionError("terapart cut is not clearly below a random partition's")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not run on the terapart path: {launches}")
+    return info
+
+
+def phase_off_vs_finest(g, scale: int, k: int, eps: float):
+    """``device_decode`` "off" (host decompress, dense layout) against
+    "finest" (decode-fused kernels) on the card: equal partitions."""
+    import numpy as np
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.ops import lp_kernels
+
+    parts, info = {}, dict(phase="off_vs_finest", graph=f"rmat_graph({scale}, 16, seed=1)",
+                           k=k)
+    for mode in ("off", "finest"):
+        solver = kp.KaMinPar("terapart")
+        solver.ctx.compression.device_decode = mode
+        solver.set_graph(g)
+        lp_kernels.reset_launches()
+        t0 = time.perf_counter()
+        parts[mode] = solver.compute_partition(k, epsilon=eps)
+        info[mode] = dict(wall_s=time.perf_counter() - t0,
+                          cut=int(solver.last_partition.edge_cut()),
+                          launches=dict(lp_kernels.LAUNCHES))
+    info["equal"] = bool(np.array_equal(parts["off"], parts["finest"]))
+    log(json.dumps(info))
+    if not info["equal"]:
+        raise AssertionError('device_decode "off" and "finest" partitions differ')
 
 
 def phase_round_reference(device):
@@ -341,20 +664,15 @@ def phase_main_path(graph, k: int, eps: float):
 
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.ops import lp_kernels
-    from kaminpar_tpu_torch.utils import Logger, OutputLevel
-
-    Logger.level = OutputLevel.EXPERIMENT
     solver = kp.KaMinPar("default")  # no device: cuda:0
     solver.set_graph(graph)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    lp_kernels.reset_launches()
-    t0 = time.perf_counter()
-    part = solver.compute_partition(k, epsilon=eps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(lp_kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    with PeakTracker() as mem:
+        lp_kernels.reset_launches()
+        t0 = time.perf_counter()
+        part = solver.compute_partition(k, epsilon=eps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(lp_kernels.LAUNCHES)
     p = solver.last_partition
     cut = int(p.edge_cut())
     bw = p.block_weights()
@@ -364,7 +682,8 @@ def phase_main_path(graph, k: int, eps: float):
     info = dict(phase="main_path", n=graph.n, m=graph.m, k=k, epsilon=eps, cut=cut,
                 random_cut_expected=int(total_ew * (1 - 1 / k)), feasible=feasible,
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
-                wall_s=wall, peak_bytes=peak, levels=part_info.num_levels,
+                wall_s=wall, peak_bytes=mem.peak, peak_outside_bytes=mem.outside,
+                peak_calls=mem.calls, levels=part_info.num_levels,
                 phase_s=part_info.phase_seconds, launches=launches)
     log(json.dumps(info))
     if not feasible:
@@ -410,16 +729,35 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
+    import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.utils import Logger, OutputLevel
 
+    Logger.level = OutputLevel.EXPERIMENT
     phase_build()
-    t0 = time.perf_counter()
-    graph = generators.rmat_graph(args.scale, 16, seed=1)
-    log(f"graph: rmat_graph({args.scale}, 16, seed=1) n={graph.n} m={graph.m} "
-        f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    def rmat(scale):
+        t0 = time.perf_counter()
+        g = generators.rmat_graph(scale, 16, seed=1)
+        log(f"graph: rmat_graph({scale}, 16, seed=1) n={g.n} m={g.m} "
+            f"({time.perf_counter() - t0:.1f} s on the host)")
+        return g
+
+    graph = rmat(args.scale)
     device = torch.device("cuda", 0)
+    terapart = kp.KaMinPar("terapart")  # no device: cuda:0
+    t0 = time.perf_counter()
+    terapart.set_graph(graph)  # compresses on the host
+    compress_s = time.perf_counter() - t0
+    rate_c, commit = phase_compressed_kernel(terapart.compressed_graph, device, K)
+    tinfo = phase_terapart_path(terapart, graph, K, EPSILON, compress_s)
+    del terapart, graph
+    torch.cuda.empty_cache()
+    phase_off_vs_finest(rmat(args.scale - 4), args.scale - 4, OFF_FINEST_K, EPSILON)
+
+    graph = rmat(args.scale - 2)
     work = finest_graph(graph, K, device)
-    rate, commit = phase_kernels(work, device, K)
+    rate, _ = phase_kernels(work, device, K)
     del work
     torch.cuda.empty_cache()
     phase_round_reference(device)
@@ -427,11 +765,13 @@ def main() -> int:
     phase_small_reference()
 
     kernels = []
-    for meas, source, replaces in ((rate, RATE_SOURCE, RATE_REPLACES),
-                                   (commit, COMMIT_SOURCE, COMMIT_REPLACES)):
+    for meas, source, replaces, path in (
+            (rate, RATE_SOURCE, RATE_REPLACES, info),
+            (rate_c, RATE_SOURCE, RATE_COMPRESSED_REPLACES, tinfo),
+            (commit, COMMIT_SOURCE, COMMIT_REPLACES, tinfo)):
         kernels.append(dict(
             name=meas["kernel"], route="cuda", source=source, replaces=replaces,
-            status="ported", launches=info["launches"][meas["kernel"]],
+            status="ported", launches=path["launches"][meas["kernel"]],
             max_abs_err=meas["max_abs_err"], ms=meas["kernel_ms"],
             plain_ms=meas["plain_ms"], bound_ms=meas["bound_ms"],
             bound_by=meas["bound_by"], library_ms=meas["library_ms"],

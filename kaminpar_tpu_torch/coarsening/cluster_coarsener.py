@@ -1,17 +1,24 @@
 """Cluster coarsener: clustering + contraction hierarchy (counterpart of
-``kaminpar_tpu/coarsening/cluster_coarsener.py`` without communities and
-without the compressed view)."""
+``kaminpar_tpu/coarsening/cluster_coarsener.py`` without communities).
+
+With a ``DeviceCompressedView`` in place of the finest CSR (the TeraPart
+tier under ``device_decode="finest"``), level 0 is clustered and contracted
+straight off the compressed stream; the finest CSR is decoded on the
+device only when uncoarsening comes back to level 0.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from ..context import Context
+from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph
-from ..ops.contraction import contract_clustering, project_partition
+from ..graph.device_compressed import DeviceCompressedView
+from ..ops.contraction import contract_clustering, contract_compressed, project_partition
 from ..utils.logger import Logger, OutputLevel
 from .lp_clusterer import LPClustering
 from .max_cluster_weights import compute_max_cluster_weight
@@ -24,18 +31,57 @@ class CoarseLevel:
 
 
 class ClusterCoarsener:
-    def __init__(self, ctx: Context, graph: CSRGraph):
+    def __init__(self, ctx: Context, graph: Optional[CSRGraph],
+                 compressed_view: Optional[DeviceCompressedView] = None):
+        """``graph`` is the finest CSR, or None when ``compressed_view``
+        stands in for it."""
         self.ctx = ctx
         self.input_graph = graph
+        self.input_cview = compressed_view
+        self._compressed: Optional[CompressedGraph] = None
+        self._device = None
         self.hierarchy: List[CoarseLevel] = []
         pinned = ctx.coarsening.lp.weighted_mode
-        weighted = (bool(pinned) if pinned is not None
-                    else graph.m > 0 and not graph.has_uniform_edge_weights())
+        if pinned is not None:
+            weighted = bool(pinned)
+        else:
+            src = graph if graph is not None else compressed_view.cg
+            weighted = not src.has_uniform_edge_weights()
         self.clusterer = LPClustering(ctx.coarsening.lp, weighted_graph=weighted)
+
+    def release_input_graph(self, compressed: CompressedGraph) -> None:
+        """Drop the finest level once coarse levels exist: while the
+        pipeline works on them, no m-sized array of the finest graph is
+        held.  ``current_graph`` decodes it again at level 0: on the device
+        from the compressed view, or on the host from ``compressed``."""
+        if self.hierarchy:
+            self._compressed = compressed
+            self._device = self.hierarchy[0].graph.device
+            self.input_graph = None
 
     @property
     def current_graph(self) -> CSRGraph:
-        return self.hierarchy[-1].graph if self.hierarchy else self.input_graph
+        if self.hierarchy:
+            return self.hierarchy[-1].graph
+        if self.input_graph is None:
+            if self.input_cview is not None:
+                Logger.log("  terapart: decoding the finest CSR on the device",
+                           OutputLevel.DEBUG)
+                self.input_graph = self.input_cview.materialize_csr()
+            else:
+                Logger.log("  terapart: decompressing the finest CSR on the host",
+                           OutputLevel.DEBUG)
+                self.input_graph = self._compressed.decompress(self._device)
+        return self.input_graph
+
+    @property
+    def current_n(self) -> int:
+        """Node count of the current level without decoding it."""
+        if self.hierarchy:
+            return self.hierarchy[-1].graph.n
+        if self.input_graph is not None:
+            return self.input_graph.n
+        return self.input_cview.n
 
     @property
     def num_levels(self) -> int:
@@ -44,20 +90,23 @@ class ClusterCoarsener:
     def coarsen_once(self, k: int, epsilon: float) -> bool:
         """One level; False when it shrank by less than the convergence
         threshold (the level is then not pushed)."""
-        graph = self.current_graph
-        n_cur, m_cur = graph.n, graph.m
+        # Level 0 off the compressed view: the finest CSR is not decoded.
+        off_stream = not self.hierarchy and self.input_graph is None
+        src = self.input_cview if off_stream else self.current_graph
+        n_cur, m_cur = src.n, src.m
         max_cw = compute_max_cluster_weight(
-            self.ctx.coarsening, n_cur, graph.total_node_weight, k, epsilon
+            self.ctx.coarsening, n_cur, src.total_node_weight, k, epsilon
         )
         # Bound the per-level shrink: cap cluster weight at ~shrink factor x
         # the average node weight, so synchronous LP keeps a gradual
         # hierarchy.
         sf = self.ctx.coarsening.max_shrink_factor
         if sf > 0:
-            avg_w = graph.total_node_weight / max(n_cur, 1)
+            avg_w = src.total_node_weight / max(n_cur, 1)
             max_cw = min(max_cw, max(int(sf * avg_w), 1))
-        labels = self.clusterer.compute_clustering(graph, max_cw)
-        coarse, coarse_of = contract_clustering(graph, labels)
+        labels = self.clusterer.compute_clustering(src, max_cw)
+        contract = contract_compressed if off_stream else contract_clustering
+        coarse, coarse_of = contract(src, labels)
         Logger.log(
             f"  coarsening level {len(self.hierarchy)}: n={n_cur} -> {coarse.n}, "
             f"m={m_cur} -> {coarse.m} (max_cw={max_cw})",
@@ -70,7 +119,7 @@ class ClusterCoarsener:
 
     def coarsen(self, k: int, epsilon: float, target_n: int) -> CSRGraph:
         """Coarsen until n <= target_n or convergence."""
-        while self.current_graph.n > target_n:
+        while self.current_n > target_n:
             if not self.coarsen_once(k, epsilon):
                 break
         return self.current_graph

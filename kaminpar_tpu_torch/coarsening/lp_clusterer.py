@@ -3,7 +3,10 @@ the dense path of ``kaminpar_tpu/coarsening/lp_clusterer.py``).
 
 Labels are node ids over the graph's PaddedView (pad nodes start in the
 anchor's cluster and never move); up to ``num_iterations`` sweeps with an
-early exit, then isolated-node and two-hop clustering.
+early exit, then isolated-node and two-hop clustering.  The graph is a
+CSRGraph, or at the finest level of the TeraPart tier a
+``DeviceCompressedView`` (same ``n_pad``, same draws, same labels), whose
+rounds rate off the compressed stream.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..context import LabelPropagationContext
-from ..graph.csr import CSRGraph
+from ..graph.device_compressed import DeviceCompressedView
 from ..ops import lp
 from ..utils import RandomState
 
@@ -23,17 +26,21 @@ class LPClustering:
         # flip as contraction accumulates edge weights.
         self.weighted_graph = weighted_graph
 
-    def compute_clustering(self, graph: CSRGraph, max_cluster_weight: int) -> torch.Tensor:
+    def compute_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
         """Padded (n_pad,) cluster labels; pad nodes carry the anchor label."""
-        pv = graph.padded()
-        bv = graph.bucketed()
-        n_pad = pv.n_pad
-        dev = graph.device
+        if isinstance(graph, DeviceCompressedView):
+            layout, node_w, row_ptr = graph, graph.node_w_pad, graph.row_ptr_like()
+            n, n_pad, anchor = graph.n, graph.n_pad, graph.anchor
+        else:
+            pv = graph.padded()
+            layout, node_w, row_ptr = graph.bucketed(), pv.node_w, pv.row_ptr
+            n, n_pad, anchor = pv.n, pv.n_pad, pv.anchor
+        dev = node_w.device
         labels = torch.cat([
-            torch.arange(pv.n, dtype=torch.int32, device=dev),
-            torch.full((n_pad - pv.n,), pv.anchor, dtype=torch.int32, device=dev),
+            torch.arange(n, dtype=torch.int32, device=dev),
+            torch.full((n_pad - n,), anchor, dtype=torch.int32, device=dev),
         ])
-        state = lp.init_state(labels, pv.node_w, n_pad)
+        state = lp.init_state(labels, node_w, n_pad)
         # a scalar cap: the clustering weight limit is uniform
         max_w = torch.tensor(int(max_cluster_weight), dtype=torch.int32, device=dev)
 
@@ -50,19 +57,17 @@ class LPClustering:
         gen = RandomState.generator(dev)
         state = lp.lp_iterate_bucketed(
             state,
-            lambda _: lp.draw_lp_round(gen, bv, n_pad, active_prob=active_prob),
-            bv, pv.node_w, max_w,
-            int(self.ctx.min_moved_fraction * pv.n), iters,
+            lambda _: lp.draw_lp_round(gen, layout, n_pad, active_prob=active_prob),
+            layout, node_w, max_w,
+            int(self.ctx.min_moved_fraction * n), iters,
             num_labels=n_pad, active_prob=active_prob,
             tie_break=self.ctx.tie_breaking.value,
         )
         if self.ctx.cluster_isolated_nodes:
-            state = lp.cluster_isolated_nodes(
-                state, pv.row_ptr, pv.node_w, max_w, num_labels=n_pad
-            )
+            state = lp.cluster_isolated_nodes(state, row_ptr, node_w, max_w,
+                                              num_labels=n_pad)
         if self.ctx.cluster_two_hop_nodes:
             state = lp.cluster_two_hop_nodes_bucketed(
-                state, lp.draw_two_hop(gen, bv, n_pad), bv, pv.node_w, max_w,
-                num_labels=n_pad,
-            )
+                state, lp.draw_two_hop(gen, layout, n_pad), layout, node_w, max_w,
+                num_labels=n_pad)
         return state.labels

@@ -1,7 +1,7 @@
 """Configuration tree of the port.
 
 A trimmed copy of ``kaminpar_tpu/context.py``: only the dataclasses and
-fields the ``default`` and ``fast`` presets read.  Defaults are the JAX
+fields the ``default``, ``fast`` and ``terapart`` presets read.  Defaults are the JAX
 package's.  There is no ``lp_kernel`` knob: the LP round runs the CUDA
 kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
 (``ops/lp_kernels.py``).  The initial bipartitioning pool is the host pool.
@@ -135,6 +135,24 @@ class PartitionContext:
 
 
 @dataclass
+class GraphCompressionContext:
+    """Whether the input graph is stored compressed (``graph/compressed.py``,
+    the TeraPart storage tier), and whether the finest level runs off the
+    device-resident compressed stream (``graph/device_compressed.py``):
+
+    - "off": the storage tier only; the deep partitioner decompresses the
+      finest CSR on the host before coarsening;
+    - "finest": level-0 clustering, contraction and the final LP refinement
+      pass decode the stream inside the kernels, and the finest CSR is
+      re-decoded on the device at uncoarsening;
+    - "auto": "finest" (the port is always inside its envelope).
+    """
+
+    enabled: bool = False
+    device_decode: str = "off"
+
+
+@dataclass
 class Context:
     preset_name: str = "default"
     mode: PartitioningMode = PartitioningMode.DEEP
@@ -144,12 +162,14 @@ class Context:
         default_factory=InitialPartitioningContext
     )
     refinement: RefinementContext = field(default_factory=RefinementContext)
+    compression: GraphCompressionContext = field(default_factory=GraphCompressionContext)
     seed: int = 0
 
 
 __all__ = [
     "BalancerContext", "ClusterWeightLimit",
-    "CoarseningContext", "Context", "InitialPartitioningContext",
+    "CoarseningContext", "Context", "GraphCompressionContext",
+    "InitialPartitioningContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
     "RefinementAlgorithm", "RefinementContext", "TieBreakingStrategy",
 ]

@@ -3,7 +3,10 @@ partitioner (counterpart of ``kaminpar_tpu/factories.py``)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 from .context import Context, PartitioningMode, RefinementAlgorithm
+from .graph.compressed import CompressedGraph
 from .graph.csr import CSRGraph
 from .refinement.balancer import OverloadBalancer, UnderloadBalancer
 from .refinement.lp_refiner import LPRefiner
@@ -28,9 +31,11 @@ def create_refiner(ctx: Context) -> Refiner:
     return MultiRefiner(refiners)
 
 
-def create_partitioner(ctx: Context, graph: CSRGraph):
+def create_partitioner(ctx: Context, graph: Optional[CSRGraph], *,
+                       compressed: Optional[CompressedGraph] = None, device=None):
+    """The partitioner of ``graph``, or of ``compressed`` on ``device``."""
     from .partitioning.deep import DeepMultilevelPartitioner
 
     if ctx.mode == PartitioningMode.DEEP:
-        return DeepMultilevelPartitioner(ctx, graph)
+        return DeepMultilevelPartitioner(ctx, graph, compressed=compressed, device=device)
     raise ValueError(f"unhandled partitioning mode {ctx.mode}")

@@ -53,6 +53,10 @@ class BucketedView(NamedTuple):
     n: int
 
     @property
+    def bucket_shapes(self):
+        return tuple(tuple(b.cols.shape) for b in self.buckets)
+
+    @property
     def num_rows(self) -> int:
         r = sum(int(b.nodes.shape[0]) for b in self.buckets)
         return r + int(self.heavy.nodes.shape[0])

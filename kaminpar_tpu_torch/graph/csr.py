@@ -97,6 +97,9 @@ class CSRGraph:
         self._bucketed = None
         self._total_node_weight: Optional[int] = None
         self._max_node_weight: Optional[int] = None
+        # The DeviceCompressedView a finest graph was decoded from (its LP
+        # refinement pass rates off the compressed stream), else None.
+        self._compressed_view = None
 
     def to(self, device) -> "CSRGraph":
         """The same graph with its arrays on ``device``."""
@@ -110,6 +113,7 @@ class CSRGraph:
         g._bucketed = None
         g._total_node_weight = self._total_node_weight
         g._max_node_weight = self._max_node_weight
+        g._compressed_view = None
         return g
 
     def host_row_ptr(self) -> np.ndarray:

@@ -13,6 +13,7 @@ Graphs here are plain NumPy CSR tuples ``(row_ptr, col_idx, node_w, edge_w)``.
 
 from __future__ import annotations
 
+import copy
 import heapq
 from typing import NamedTuple, Optional, Tuple
 
@@ -38,6 +39,43 @@ class HostCSR(NamedTuple):
     def neighbors(self, u: int):
         s, e = self.row_ptr[u], self.row_ptr[u + 1]
         return self.col_idx[s:e], self.edge_w[s:e]
+
+
+class _Draws:
+    """Scalar draws of one kind (``draw(gen, size)``) from ``rng``, served
+    from bulk draws of a copy of it; :meth:`close` advances ``rng`` past
+    the draws served.  numpy gives the same values and the same end state
+    for ``size`` scalar calls and one call of that size, so the sequence is
+    that of calling ``rng`` once per draw, at a fraction of the cost."""
+
+    _CHUNK = 4096
+
+    def __init__(self, rng, draw):
+        self._rng, self._draw = rng, draw
+        self._src = copy.deepcopy(rng)
+        self._buf: list = []
+        self._i = self._served = 0
+
+    def next(self):
+        if self._i == len(self._buf):
+            self._buf = self._draw(self._src, self._CHUNK).tolist()
+            self._i = 0
+        self._i += 1
+        self._served += 1
+        return self._buf[self._i - 1]
+
+    def close(self) -> None:
+        if self._served:
+            self._draw(self._rng, self._served)
+
+
+def _keys(gen, size):
+    """Heap tie-break keys, as ``rng.integers(1 << 30)``."""
+    return gen.integers(1 << 30, size=size)
+
+
+def _uniforms(gen, size):
+    return gen.random(size)
 
 
 def _cut(g: HostCSR, part: np.ndarray) -> int:
@@ -115,30 +153,25 @@ def _ggg_bipartition(g: HostCSR, max_w: np.ndarray, rng) -> np.ndarray:
         return part
     seed = int(rng.integers(g.n))
     target = _grow_target(g, max_w)
-    in_frontier = np.zeros(g.n, dtype=bool)
-    gain = np.zeros(g.n, dtype=np.int64)
-    heap: list = []
+    rp, col, nw, ew = (a.tolist() for a in g)
+    p = part.tolist()
+    gain = [0] * g.n
+    keys = _Draws(rng, _keys)
+    heap = [(0, keys.next(), seed)]
     w0 = 0
-
-    def push(u):
-        in_frontier[u] = True
-        heapq.heappush(heap, (-int(gain[u]), int(rng.integers(1 << 30)), u))
-
-    push(seed)
     while heap and w0 < target:
         _, _, u = heapq.heappop(heap)
-        if part[u] == 0:
+        if p[u] == 0 or w0 + nw[u] > target:
             continue
-        if w0 + g.node_w[u] > target:
-            continue
-        part[u] = 0
-        w0 += int(g.node_w[u])
-        nbrs, ws = g.neighbors(u)
-        for v, w in zip(nbrs, ws):
-            if part[v] != 0:
-                gain[v] += 2 * int(w)  # v gained connection to block 0
-                push(int(v))
-    return part
+        p[u] = 0
+        w0 += nw[u]
+        for j in range(rp[u], rp[u + 1]):
+            v = col[j]
+            if p[v] != 0:
+                gain[v] += 2 * ew[j]  # v gained connection to block 0
+                heapq.heappush(heap, (-gain[v], keys.next(), v))
+    keys.close()
+    return np.asarray(p, dtype=np.int32)
 
 
 def _fm_refine_2way(
@@ -158,15 +191,18 @@ def _fm_refine_2way(
     n = g.n
     if n == 0:
         return part
-    part = part.copy()
-    bw = _block_weights(g, part)
+    rp, col, nw, ew = (a.tolist() for a in g)
+    mw = [int(x) for x in max_w]
+    bw = [int(x) for x in _block_weights(g, part)]
+    p = part.tolist()
 
     for _ in range(num_iterations):
-        gain = _move_gains(g, part)
+        gain = _move_gains(g, np.asarray(p, dtype=part.dtype)).tolist()
 
-        locked = np.zeros(n, dtype=bool)
-        heap = [(-int(gain[u]), int(rng.integers(1 << 30)), int(u)) for u in range(n)]
+        locked = [False] * n
+        heap = list(zip([-x for x in gain], _keys(rng, n).tolist(), range(n)))
         heapq.heapify(heap)
+        keys = _Draws(rng, _keys)
 
         best_cut_delta = 0
         cur_delta = 0
@@ -179,15 +215,16 @@ def _fm_refine_2way(
             negg, _, u = heapq.heappop(heap)
             if locked[u] or -negg != gain[u]:
                 continue  # stale entry
-            src, dst = part[u], 1 - part[u]
-            if bw[dst] + g.node_w[u] > max_w[dst]:
+            src = p[u]
+            dst = 1 - src
+            if bw[dst] + nw[u] > mw[dst]:
                 continue
             # apply
             locked[u] = True
-            part[u] = dst
-            bw[src] -= g.node_w[u]
-            bw[dst] += g.node_w[u]
-            cur_delta -= int(gain[u])
+            p[u] = dst
+            bw[src] -= nw[u]
+            bw[dst] += nw[u]
+            cur_delta -= gain[u]
             moves.append(u)
             if cur_delta < best_cut_delta:
                 best_cut_delta = cur_delta
@@ -195,26 +232,27 @@ def _fm_refine_2way(
                 fruitless = 0
             else:
                 fruitless += 1
-            nbrs, ws = g.neighbors(u)
-            for v, w in zip(nbrs, ws):
+            for j in range(rp[u], rp[u + 1]):
+                v = col[j]
                 if locked[v]:
                     continue
                 # u switched sides: edges to v flip internal/external
-                if part[v] == part[u]:
-                    gain[v] -= 2 * int(w)
+                if p[v] == dst:
+                    gain[v] -= 2 * ew[j]
                 else:
-                    gain[v] += 2 * int(w)
-                heapq.heappush(heap, (-int(gain[v]), int(rng.integers(1 << 30)), int(v)))
+                    gain[v] += 2 * ew[j]
+                heapq.heappush(heap, (-gain[v], keys.next(), v))
+        keys.close()
 
         # roll back to best prefix
         for u in moves[best_prefix:]:
-            src, dst = part[u], 1 - part[u]
-            part[u] = dst
-            bw[src] -= g.node_w[u]
-            bw[dst] += g.node_w[u]
+            src = p[u]
+            p[u] = 1 - src
+            bw[src] -= nw[u]
+            bw[1 - src] += nw[u]
         if best_prefix == 0:
             break
-    return part
+    return np.asarray(p, dtype=part.dtype)
 
 
 _FLAT_BIPARTITIONERS = {
@@ -239,25 +277,28 @@ def _lp_cluster_seq(
     stall far above the contraction limit.
     """
     n = g.n
-    labels = np.arange(n, dtype=np.int64)
-    cw = g.node_w.astype(np.int64).copy()
+    rp, col, nw, ew = (a.tolist() for a in g)
+    labels = list(range(n))
+    cw = list(nw)
     for _ in range(num_iterations):
         moved = 0
-        for u in rng.permutation(n):
-            nbrs, ws = g.neighbors(u)
-            if len(nbrs) == 0:
+        order = rng.permutation(n).tolist()
+        coins = _Draws(rng, _uniforms)
+        for u in order:
+            s, e = rp[u], rp[u + 1]
+            if s == e:
                 continue
             own = labels[u]
             rating: dict = {}
-            for v, w in zip(nbrs, ws):
-                c = labels[v]
-                rating[c] = rating.get(c, 0) + int(w)
-            w_u = int(g.node_w[u])
+            for j in range(s, e):
+                c = labels[col[j]]
+                rating[c] = rating.get(c, 0) + ew[j]
+            w_u = nw[u]
             best_c, best_r = own, rating.get(own, 0)
             for c, r in rating.items():
                 if c == own:
                     continue
-                if (r > best_r or (r == best_r and rng.random() < 0.5)) and cw[
+                if (r > best_r or (r == best_r and coins.next() < 0.5)) and cw[
                     c
                 ] + w_u <= max_cw:
                     best_c, best_r = c, r
@@ -266,8 +307,10 @@ def _lp_cluster_seq(
                 cw[best_c] += w_u
                 labels[u] = best_c
                 moved += 1
+        coins.close()
         if moved == 0:
             break
+    labels = np.asarray(labels, dtype=np.int64)
 
     # Bin-pack isolated nodes into joint clusters up to max_cw.
     isolated = np.flatnonzero((np.diff(g.row_ptr) == 0) & (labels == np.arange(n)))

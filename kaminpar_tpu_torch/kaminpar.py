@@ -3,7 +3,11 @@
 
 It owns a graph and a :class:`Context`, sets up the block-weight limits,
 strips isolated nodes, runs the deep multilevel partitioner on its device
-and re-inserts the isolated nodes into the lightest blocks.  The device is
+and re-inserts the isolated nodes into the lightest blocks.  A compressed
+graph (``set_graph(CompressedGraph)``, or any graph under a context with
+``compression.enabled``, as the ``terapart`` preset sets) is partitioned
+from its compressed form: budgets come from its metadata and the isolated
+nodes stay in, for LP's isolated-node pass.  The device is
 ``cuda:0`` unless the caller names another one; without CUDA the facade
 raises instead of running on the CPU.  Tests pass ``device="cpu"``, where
 every kernel wrapper takes its plain PyTorch version.
@@ -19,6 +23,7 @@ import torch
 
 from .context import Context
 from .factories import create_partitioner
+from .graph.compressed import CompressedGraph, compress
 from .graph.csr import CSRGraph, from_numpy_csr
 from .graph.isolated import assign_isolated_nodes, strip_isolated_csr
 from .graph.partitioned import PartitionedGraph
@@ -52,12 +57,22 @@ class KaMinPar:
         self.ctx = ctx_or_preset
         self.device = _resolve_device(device)
         self.graph: Optional[CSRGraph] = None
+        self.compressed_graph: Optional[CompressedGraph] = None
         self._last: Optional[PartitionedGraph] = None
         # The partitioner of the last run (its phase times and level count).
         self.last_partitioner = None
 
-    def set_graph(self, graph: CSRGraph) -> None:
-        self.graph = graph
+    def set_graph(self, graph: Union[CSRGraph, CompressedGraph]) -> None:
+        """A CSRGraph, or a CompressedGraph; with ``ctx.compression.enabled``
+        a CSRGraph is stored compressed."""
+        if isinstance(graph, CompressedGraph):
+            self.graph, self.compressed_graph = None, graph
+        elif self.ctx.compression.enabled:
+            self.graph, self.compressed_graph = None, compress(graph)
+            Logger.log(f"compressed input: {self.compressed_graph.memory_bytes()} B "
+                       f"({self.compressed_graph.compression_ratio():.2f}x)")
+        else:
+            self.graph, self.compressed_graph = graph, None
 
     def copy_graph(self, row_ptr: np.ndarray, col_idx: np.ndarray,
                    node_weights: Optional[np.ndarray] = None,
@@ -74,11 +89,11 @@ class KaMinPar:
         Block weight limit: ``max((1+epsilon)*ceil(W/k), ceil(W/k) +
         max_node_weight)`` per block, or the absolute ``max_block_weights``.
         """
-        if self.graph is None:
+        graph = self.graph if self.graph is not None else self.compressed_graph
+        if graph is None:
             raise ValueError("call set_graph or copy_graph first")
         if min_block_weights is not None:
             raise NotImplementedError("minimum block weights are not ported yet")
-        graph = self.graph
         ctx = self.ctx
         if k <= 0:
             raise ValueError("k must be positive")
@@ -98,10 +113,12 @@ class KaMinPar:
         finally:
             lp_ctx.weighted_mode = pinned
 
-    def _partition(self, graph: CSRGraph, k: int, epsilon: float,
-                   max_block_weights, start: float) -> np.ndarray:
+    def _partition(self, graph: Union[CSRGraph, CompressedGraph], k: int,
+                   epsilon: float, max_block_weights, start: float) -> np.ndarray:
         ctx = self.ctx
         total_node_weight = graph.total_node_weight
+        max_node_weight = (int(graph.node_w.max(initial=0))
+                           if isinstance(graph, CompressedGraph) else graph.max_node_weight)
         ctx.partition.setup(total_node_weight, k, epsilon)
         if max_block_weights is not None:
             max_bw = np.asarray(max_block_weights, dtype=np.int64)
@@ -113,11 +130,23 @@ class KaMinPar:
         else:
             perfect = (total_node_weight + k - 1) // k
             ctx.partition.max_block_weights = np.maximum(
-                ctx.partition.max_block_weights, perfect + graph.max_node_weight
+                ctx.partition.max_block_weights, perfect + max_node_weight
             )
         max_bw = np.asarray(ctx.partition.max_block_weights, dtype=np.int64)
         if graph.n == 0:
             return np.zeros(0, dtype=np.int32)
+
+        if isinstance(graph, CompressedGraph):
+            # The isolated nodes stay in: the strip needs a full CSR rebuild,
+            # and LP's isolated-node pass clusters them.
+            partitioner = create_partitioner(ctx, None, compressed=graph,
+                                             device=self.device)
+            p_graph = partitioner.partition()
+            self.last_partitioner = partitioner
+            self._last = PartitionedGraph.create(p_graph.graph, k, p_graph.partition, max_bw)
+            log_result_line(self._last.edge_cut(), self._last.imbalance(),
+                            self._last.is_feasible(), k, time.perf_counter() - start)
+            return self._last.partition.cpu().numpy().astype(np.int32)
 
         # Strip isolated nodes on the host; they go to the lightest blocks
         # afterwards.

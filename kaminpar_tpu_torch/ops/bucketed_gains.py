@@ -150,18 +150,20 @@ def _heavy_moves(labels, heavy: HeavyPart, node_w, label_weights,
     )
 
 
-def draw_ties(gen: torch.Generator, bv: BucketedView):
-    """The tie-break randoms of one rating pass: an (R, w) int32 array per
-    bucket and an (S,) array for the heavy part (None without heavy rows),
-    uniform in [0, 2^31 - 1)."""
-    dev = bv.gather_idx.device
+def draw_ties(gen: torch.Generator, layout):
+    """The tie-break randoms of one rating pass over a bucketed layout
+    (dense ``BucketedView`` or ``DeviceCompressedView``): an (R, w) int32
+    array per bucket and an (S,) array for the heavy part (None without
+    heavy rows), uniform in [0, 2^31 - 1).  Drawn from the layout's shapes
+    alone, so both layouts of one graph take the same draws."""
+    dev = layout.gather_idx.device
 
     def draw(shape):
         return torch.randint(0, I32MAX, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    ties = tuple(draw(tuple(b.cols.shape)) for b in bv.buckets)
-    heavy = draw(tuple(bv.heavy.cols.shape)) if bv.heavy.nodes.shape[0] else None
+    ties = tuple(draw(shape) for shape in layout.bucket_shapes)
+    heavy = draw(tuple(layout.heavy.cols.shape)) if layout.heavy.nodes.shape[0] else None
     return ties, heavy
 
 

@@ -57,19 +57,38 @@ def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
     return coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr
 
 
+def _coarse_graph(outs, n_fine: int, total_node_weight, device):
+    """The coarse graph and fine -> coarse map of ``_contract_core``'s
+    outputs; the pure-padding anchor cluster (always last) is dropped."""
+    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr = outs
+    n_c -= 1
+    coarse = CSRGraph(row_ptr[: n_c + 1], out_v, c_node_w[:n_c], out_w,
+                      edge_u=out_u, device=device)
+    coarse._total_node_weight = total_node_weight
+    return coarse, coarse_of[:n_fine]
+
+
 def contract_clustering(graph: CSRGraph, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
     """Contract a clustering (over ``graph.padded()``) into a coarse graph.
     Returns ``(coarse_graph, coarse_of)`` with ``coarse_of[u]`` the coarse
     node of fine node u (u < graph.n)."""
     pv = graph.padded()
-    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr = _contract_core(
-        labels_padded, pv.edge_u, pv.col_idx, pv.edge_w, pv.node_w
-    )
-    n_c -= 1  # drop the pure-padding anchor cluster (always last)
-    coarse = CSRGraph(row_ptr[: n_c + 1], out_v, c_node_w[:n_c], out_w,
-                      edge_u=out_u, device=graph.device)
-    coarse._total_node_weight = graph._total_node_weight
-    return coarse, coarse_of[: graph.n]
+    outs = _contract_core(labels_padded, pv.edge_u, pv.col_idx, pv.edge_w, pv.node_w)
+    return _coarse_graph(outs, graph.n, graph._total_node_weight, graph.device)
+
+
+def contract_compressed(cv, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
+    """:func:`contract_clustering` off a ``DeviceCompressedView``: the fine
+    edges are decoded (``decode_flat_padded``) straight into the
+    sort-reduce and die with it, so no dense finest CSR stays resident.
+    The result equals contract_clustering on the decompressed graph."""
+    from ..graph.device_compressed import decode_flat_padded
+
+    _, col, ew, eu = decode_flat_padded(cv.stream, cv.wstart_pad, cv.width_pad,
+                                        cv.degree_pad, m=cv.m, m_pad=cv.m_pad)
+    outs = _contract_core(labels_padded, eu, col, ew, cv.node_w_pad)
+    del col, ew, eu
+    return _coarse_graph(outs, cv.n, cv.total_node_weight, cv.device)
 
 
 def project_partition(coarse_of: torch.Tensor, coarse_partition: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,12 @@ num_labels_bucket(k)``, a per-block cap table).
 All random draws of a round come in through :class:`LPDraws`, drawn by
 :func:`draw_lp_round` from the run's generator on the data's device, or
 built by a test from the JAX package's own draws.  Integers are int32.
+
+Every round runs over a degree-bucketed layout: the dense ``BucketedView``
+or, at the finest level of the TeraPart tier, the ``DeviceCompressedView``,
+whose rows are decoded inside the rating kernel (:func:`best_moves` picks
+the rating by the layout's type).  Both layouts of one graph have the same
+bucket shapes, so they take the same draws and give the same results.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..graph.bucketed import BucketedView
-from .bucketed_gains import I32MAX, bucketed_best_moves, draw_ties, lookup
+from ..graph.device_compressed import DeviceCompressedView
+from .bucketed_gains import (
+    I32MAX, _heavy_moves, assemble_moves, bucketed_best_moves, draw_ties, lookup,
+)
 from .segment import run_starts, segment_max, segment_min, segment_sum
 
 
@@ -65,8 +73,9 @@ def use_radix_auction(num_labels: int) -> bool:
     return num_labels * _RADIX * 4 <= _RADIX_HIST_BYTE_LIMIT
 
 
-def draw_lp_round(gen: torch.Generator, bv: BucketedView, n_pad: int, *,
+def draw_lp_round(gen: torch.Generator, bv, n_pad: int, *,
                   active_prob: float = 1.0, allow_tie_moves: bool = False) -> LPDraws:
+    """The draws of one LP round over either layout (``draw_ties``)."""
     dev = bv.gather_idx.device
     ties, heavy_tie = draw_ties(gen, bv)
     prio = torch.randint(0, (1 << _PRIO_BITS) - 1, (n_pad,), generator=gen,
@@ -79,7 +88,7 @@ def draw_lp_round(gen: torch.Generator, bv: BucketedView, n_pad: int, *,
     return LPDraws(ties, heavy_tie, prio, coin, act)
 
 
-def draw_two_hop(gen: torch.Generator, bv: BucketedView, n_pad: int) -> LPDraws:
+def draw_two_hop(gen: torch.Generator, bv, n_pad: int) -> LPDraws:
     """Draws of the two-hop pass: rating ties and the pairing priorities
     (uniform in [0, 2^31 - 1))."""
     ties, heavy_tie = draw_ties(gen, bv)
@@ -178,16 +187,52 @@ def _commit_moves(state: LPState, target, tconn, own_conn, node_w,
                    commit.sum(dtype=torch.int32))
 
 
-def lp_round_bucketed(state: LPState, draws: LPDraws, bv: BucketedView, node_w,
+def compressed_best_moves(labels, cv: DeviceCompressedView, node_w, label_weights,
+                          max_label_weights, ties, heavy_tie, *,
+                          external_only: bool = True, respect_caps: bool = True,
+                          tie_break: str = "uniform"):
+    """``bucketed_best_moves`` over the compressed layout: each bucket goes
+    through the decode-fused rating kernel's wrapper (the CUDA kernel on a
+    CUDA tensor, decode + the plain rating on a CPU tensor); heavy rows
+    take the same flat path."""
+    from .lp_kernels import rate_compressed_bucket
+
+    outs = [
+        rate_compressed_bucket(labels, node_w, label_weights, max_label_weights,
+                               cv.stream, cb, tie, external_only=external_only,
+                               respect_caps=respect_caps, tie_break=tie_break)
+        for cb, tie in zip(cv.buckets, ties)
+    ]
+    if cv.heavy.nodes.shape[0] > 0:
+        outs.append(_heavy_moves(
+            labels, cv.heavy, node_w, label_weights, max_label_weights, heavy_tie,
+            external_only=external_only, respect_caps=respect_caps, tie_break=tie_break,
+        ))
+    return assemble_moves(outs, cv.gather_idx, labels, cv.n, int(labels.shape[0]))
+
+
+def best_moves(labels, layout, node_w, label_weights, max_label_weights, ties,
+               heavy_tie, **flags):
+    """The best move per node over either layout: the dense ``BucketedView``
+    (``bucketed_best_moves``) or the ``DeviceCompressedView``
+    (:func:`compressed_best_moves`)."""
+    fn = (compressed_best_moves if isinstance(layout, DeviceCompressedView)
+          else bucketed_best_moves)
+    return fn(labels, layout, node_w, label_weights, max_label_weights, ties, heavy_tie,
+              **flags)
+
+
+def lp_round_bucketed(state: LPState, draws: LPDraws, layout, node_w,
                       max_label_weights, *, num_labels: int,
                       active_prob: float = 1.0, allow_tie_moves: bool = False,
                       tie_break: str = "uniform") -> LPState:
-    """One synchronous LP round over the bucketed layout: the rating kernel
-    per bucket, the flat heavy path, then the commit kernel."""
+    """One synchronous LP round over a bucketed layout, dense or compressed:
+    the rating kernel per bucket, the flat heavy path, then the commit
+    kernel.  Both layouts of one graph give the same result."""
     from .lp_kernels import commit_moves
 
-    target, tconn, own_conn, _ = bucketed_best_moves(
-        state.labels, bv, node_w, state.label_weights, max_label_weights,
+    target, tconn, own_conn, _ = best_moves(
+        state.labels, layout, node_w, state.label_weights, max_label_weights,
         draws.ties, draws.heavy_tie, external_only=False, respect_caps=True,
         tie_break=tie_break,
     )
@@ -198,24 +243,19 @@ def lp_round_bucketed(state: LPState, draws: LPDraws, bv: BucketedView, node_w,
     )
 
 
-def lp_iterate_bucketed(state: LPState, draw: Callable[[int], LPDraws],
-                        bv: BucketedView, node_w, max_label_weights,
-                        min_moved: int, max_iterations: int, *, num_labels: int,
-                        active_prob: float = 1.0, allow_tie_moves: bool = False,
-                        tie_break: str = "uniform") -> LPState:
-    """Up to ``max_iterations`` rounds; stops once a round moves at most
-    ``min_moved`` nodes.  ``draw(i)`` gives round i's draws.  The moved
-    count is read back once per round."""
+def lp_iterate_bucketed(state: LPState, draw: Callable[[int], LPDraws], layout,
+                        node_w, max_label_weights, min_moved: int,
+                        max_iterations: int, **round_kwargs) -> LPState:
+    """Up to ``max_iterations`` rounds of :func:`lp_round_bucketed`; stops
+    once a round moves at most ``min_moved`` nodes.  ``draw(i)`` gives round
+    i's draws.  The moved count is read back once per round."""
     state = state._replace(num_moved=torch.tensor(
         I32MAX, dtype=torch.int32, device=state.labels.device))
     moved = I32MAX
     i = 0
     while i < max_iterations and moved > min_moved:
-        state = lp_round_bucketed(
-            state, draw(i), bv, node_w, max_label_weights,
-            num_labels=num_labels, active_prob=active_prob,
-            allow_tie_moves=allow_tie_moves, tie_break=tie_break,
-        )
+        state = lp_round_bucketed(state, draw(i), layout, node_w, max_label_weights,
+                                  **round_kwargs)
         moved = int(state.num_moved)
         i += 1
     return state
@@ -242,18 +282,23 @@ def cluster_isolated_nodes(state: LPState, row_ptr, node_w, max_label_weights, *
     return LPState(new_labels, segment_sum(node_w, new_labels, num_labels), num_moved)
 
 
-def cluster_two_hop_nodes_bucketed(state: LPState, draws: LPDraws,
-                                   bv: BucketedView, node_w, max_label_weights,
-                                   *, num_labels: int) -> LPState:
+def cluster_two_hop_nodes_bucketed(state: LPState, draws: LPDraws, layout, node_w,
+                                   max_label_weights, *, num_labels: int) -> LPState:
     """Match singleton clusters that favour the same cluster (two-hop
-    clustering); the favoured cluster is rated by the rating kernel with
-    caps ignored."""
-    favored, fconn, _, _ = bucketed_best_moves(
-        state.labels, bv, node_w, state.label_weights, max_label_weights,
+    clustering); the favoured cluster is rated by the rating kernel of the
+    layout (dense or compressed) with caps ignored."""
+    favored, fconn, _, _ = best_moves(
+        state.labels, layout, node_w, state.label_weights, max_label_weights,
         draws.ties, draws.heavy_tie, external_only=False, respect_caps=False,
     )
     return two_hop_match(state, draws.prio, favored, fconn, node_w,
                          max_label_weights, num_labels=num_labels)
+
+
+# The JAX package's names for the compressed layout's functions.
+lp_round_compressed = lp_round_bucketed
+lp_iterate_compressed = lp_iterate_bucketed
+cluster_two_hop_nodes_compressed = cluster_two_hop_nodes_bucketed
 
 
 def two_hop_match(state: LPState, prio, favored, fconn, node_w,

@@ -1,16 +1,19 @@
 """The hand-written CUDA kernels of the LP round, their wrappers and build.
 
-Two kernels replace the TPU kernels of ``kaminpar_tpu/ops/pallas_lp.py``:
+Three kernels replace the TPU kernels of ``kaminpar_tpu/ops/pallas_lp.py``:
 
 - ``csrc/lp_rate.cu`` (``kp_rate_bucket``) replaces ``_rate_bucket``: the
   best move of every row of one degree bucket;
+- ``csrc/lp_rate.cu`` (``kp_rate_compressed_bucket``) replaces
+  ``_rate_compressed_bucket``: the same rating, with each row decoded from
+  the compressed word stream inside the kernel;
 - ``csrc/lp_commit.cu`` (``kp_commit_moves``) replaces ``commit_moves``:
   movers, capacity auction and label/weight update of one round.
 
 Dispatch is by device: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version (``bucketed_gains._bucket_moves``,
-``lp._commit_moves``).  There is no fallback: a kernel that does not build
-or launch raises.  Each wrapper counts its kernel launches in
+:func:`rate_compressed_bucket_plain`, ``lp._commit_moves``).  There is no
+fallback: a kernel that does not build or launch raises.  Each wrapper counts its kernel launches in
 :data:`LAUNCHES`.
 
 Build: ``nvcc`` compiles each source for ``sm_90a`` (all at once, one
@@ -35,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from ..graph.bucketed import Bucket
+from ..graph.device_compressed import CompressedBucket, CompressedStream, decode_bucket
 from . import bucketed_gains, lp
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -44,7 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"lp_rate": 0, "lp_commit": 0}
+LAUNCHES = {"lp_rate": 0, "lp_rate_compressed": 0, "lp_commit": 0}
 # What the last build printed (ptxas register/shared-memory/spill lines)
 # and how long it took; empty when the library came from an earlier build.
 BUILD_INFO = {"seconds": None, "log": ""}
@@ -119,6 +124,10 @@ def _library():
             lib.kp_rate_bucket.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, I, I,
                                            P, P, P, P, P]
             lib.kp_rate_bucket.restype = I
+            lib.kp_rate_compressed_bucket.argtypes = [P, P, P, P, I, P, I, P, I, I, P, P,
+                                                      P, P, P, P, I, I, I, I, I, P, P, P,
+                                                      P, P]
+            lib.kp_rate_compressed_bucket.restype = I
             lib.kp_commit_moves.argtypes = [I, I, P, P, P, P, I, P, P, P, P, P, P, P,
                                             I, I, I, I, P, P, P, P, P, P, P, P, P, P, P,
                                             P]
@@ -160,6 +169,35 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
 
 
+def _check_bucket_shape(R: int, w: int) -> None:
+    if w & (w - 1) or not 8 <= w <= 4096 or R & (R - 1) or R < 8:
+        raise ValueError(f"bucket shape ({R}, {w}) is not a power-of-two bucket")
+
+
+def _check_rate_tables(labels, node_w, label_weights, max_label_weights, dev):
+    """Checks the rating kernels' node and label tables; returns the cap as
+    a (1,) or (L,) tensor and whether it is a scalar."""
+    i32 = torch.int32
+    _check("labels", labels, i32, device=dev)
+    _check("node_w", node_w, i32, labels.shape, dev)
+    _check("label_weights", label_weights, i32, device=dev)
+    maxw_scalar = max_label_weights.ndim == 0
+    maxw = max_label_weights.reshape(1) if maxw_scalar else max_label_weights
+    _check("max_label_weights", maxw, i32,
+           None if maxw_scalar else label_weights.shape, dev)
+    return maxw, maxw_scalar
+
+
+def _rate_outputs(R: int, dev):
+    i32 = torch.int32
+    return (torch.empty(R, dtype=i32, device=dev), torch.empty(R, dtype=i32, device=dev),
+            torch.empty(R, dtype=i32, device=dev), torch.empty(R, dtype=torch.bool, device=dev))
+
+
+def _stream_ptr(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
 def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *,
                 external_only: bool, respect_caps: bool, tie_break: str = "uniform"):
     """Best move of every row of one (R, w) bucket: (target, tconn,
@@ -175,34 +213,80 @@ def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *
     if tie_break not in ("uniform", "lightest"):
         raise ValueError(f"unknown tie_break {tie_break!r}")
     R, w = cols.shape
-    if w & (w - 1) or not 8 <= w <= 4096 or R & (R - 1) or R < 8:
-        raise ValueError(f"bucket shape ({R}, {w}) is not a power-of-two bucket")
+    _check_bucket_shape(R, w)
     dev = cols.device
     i32 = torch.int32
-    _check("labels", labels, i32, device=dev)
-    _check("node_w", node_w, i32, labels.shape, dev)
-    _check("label_weights", label_weights, i32, device=dev)
-    maxw_scalar = max_label_weights.ndim == 0
-    maxw = max_label_weights.reshape(1) if maxw_scalar else max_label_weights
-    _check("max_label_weights", maxw, i32,
-           None if maxw_scalar else label_weights.shape, dev)
+    maxw, maxw_scalar = _check_rate_tables(labels, node_w, label_weights,
+                                           max_label_weights, dev)
     _check("nodes", nodes, i32, (R,), dev)
     _check("wgts", wgts, i32, (R, w), dev)
     _check("cols", cols, i32, (R, w), dev)
     _check("tie", tie, i32, (R, w), dev)
-    target = torch.empty(R, dtype=i32, device=dev)
-    tconn = torch.empty(R, dtype=i32, device=dev)
-    own_conn = torch.empty(R, dtype=i32, device=dev)
-    has = torch.empty(R, dtype=torch.bool, device=dev)
+    target, tconn, own_conn, has = _rate_outputs(R, dev)
     err = _library().kp_rate_bucket(
         _ptr(labels), _ptr(node_w), _ptr(label_weights), _ptr(maxw),
         int(maxw_scalar), _ptr(nodes), _ptr(cols), _ptr(wgts), _ptr(tie), R, w,
         int(external_only), int(respect_caps), int(tie_break == "lightest"),
-        _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(has),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(has), _stream_ptr(dev),
     )
     _raise_on(err, "kp_rate_bucket")
     LAUNCHES["lp_rate"] += 1
+    return target, tconn, own_conn, has
+
+
+def rate_compressed_bucket_plain(labels, node_w, label_weights, max_label_weights,
+                                 stream: CompressedStream, cb: CompressedBucket, tie,
+                                 **flags):
+    """The plain version of kernel #2 on any device: the bucket decoded to
+    its (R, w) ``(cols, wgts)`` (``device_compressed.decode_bucket``), then
+    the plain rating ``bucketed_gains._bucket_moves``."""
+    cols, wgts = decode_bucket(stream, cb)
+    return bucketed_gains._bucket_moves(labels, Bucket(cb.nodes, cols, wgts), node_w,
+                                        label_weights, max_label_weights, tie, **flags)
+
+
+def rate_compressed_bucket(labels, node_w, label_weights, max_label_weights,
+                           stream: CompressedStream, cb: CompressedBucket, tie, *,
+                           external_only: bool, respect_caps: bool,
+                           tie_break: str = "uniform"):
+    """Best move of every row of one compressed bucket, its (R, w)
+    neighbour slots decoded from ``stream``: (target, tconn, own_conn,
+    has), each (R,).  Kernel #2 on CUDA tensors (the decoded rows never
+    reach device memory); on CPU tensors the plain version decodes the
+    bucket and rates it."""
+    if not _route(labels, node_w, label_weights, max_label_weights, stream.words,
+                  stream.edge_w, *cb[:5], tie):
+        return rate_compressed_bucket_plain(
+            labels, node_w, label_weights, max_label_weights, stream, cb, tie,
+            external_only=external_only, respect_caps=respect_caps, tie_break=tie_break,
+        )
+    if tie_break not in ("uniform", "lightest"):
+        raise ValueError(f"unknown tie_break {tie_break!r}")
+    R, w = int(cb.nodes.shape[0]), int(cb.w)
+    _check_bucket_shape(R, w)
+    dev = cb.nodes.device
+    i32 = torch.int32
+    maxw, maxw_scalar = _check_rate_tables(labels, node_w, label_weights,
+                                           max_label_weights, dev)
+    words, edge_w = stream
+    _check("words", words, i32, device=dev)
+    _check("edge_w", edge_w, i32, device=dev)
+    if words.ndim != 1 or words.shape[0] < 2 or edge_w.ndim != 1:
+        raise ValueError("words and edge_w must be 1-D, words of at least 2 entries")
+    for name, t in zip(("nodes", "wstart", "width", "deg", "estart"), cb[:5]):
+        _check(name, t, i32, (R,), dev)
+    _check("tie", tie, i32, (R, w), dev)
+    target, tconn, own_conn, has = _rate_outputs(R, dev)
+    err = _library().kp_rate_compressed_bucket(
+        _ptr(labels), _ptr(node_w), _ptr(label_weights), _ptr(maxw),
+        int(maxw_scalar), _ptr(words), int(words.shape[0]), _ptr(edge_w),
+        int(edge_w.shape[0]), int(stream.weighted), *(_ptr(t) for t in cb[:5]),
+        _ptr(tie), R, w, int(external_only), int(respect_caps),
+        int(tie_break == "lightest"), _ptr(target), _ptr(tconn), _ptr(own_conn),
+        _ptr(has), _stream_ptr(dev),
+    )
+    _raise_on(err, "kp_rate_compressed_bucket")
+    LAUNCHES["lp_rate_compressed"] += 1
     return target, tconn, own_conn, has
 
 
@@ -259,8 +343,7 @@ def commit_moves(state: "lp.LPState", target, tconn, own_conn, node_w,
         int(radix), _ptr(t_idx), _ptr(w_mover), _ptr(moved), _ptr(is_target),
         _ptr(slack),
         _ptr(thr), _ptr(admitted), _ptr(hist), _ptr(new_labels),
-        _ptr(new_weights), _ptr(moved_count),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _ptr(new_weights), _ptr(moved_count), _stream_ptr(dev),
     )
     _raise_on(err, "kp_commit_moves")
     LAUNCHES["lp_commit"] += 1

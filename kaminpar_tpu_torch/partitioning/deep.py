@@ -9,19 +9,29 @@ Extension splits each block's subgraph on the host (recursive
 bipartitioning), or, for splits into four or more parts of subgraphs of at
 least ``nested_extension_n`` nodes, with a nested deep pipeline on the
 graph's device.
+
+The input is a CSRGraph, or a ``CompressedGraph`` (the TeraPart tier).
+Under ``device_decode`` "finest"/"auto" a ``DeviceCompressedView`` stands
+in for the finest CSR during coarsening; under "off" the finest CSR is
+decompressed on the host.  Either way it is released while the coarse
+levels are worked on and decoded again at level 0.
 """
 
 from __future__ import annotations
 
 import copy
 import time
+from typing import Optional
 
 import numpy as np
+import torch
 
 from ..coarsening.cluster_coarsener import ClusterCoarsener
 from ..context import Context
 from ..factories import create_refiner
+from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph, from_numpy_csr
+from ..graph.device_compressed import build_device_view
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import HostCSR, extract_all_subgraphs, recursive_bipartition
 from ..utils import RandomState
@@ -77,6 +87,7 @@ def _nested_partition(sub: HostCSR, sub_k: int, budgets: np.ndarray, ctx: Contex
     ``device``; the best of ``nested_extension_reps`` attempts (feasible
     first, then cut) wins."""
     sub_ctx = copy.deepcopy(ctx)
+    sub_ctx.compression.enabled = False
     sub_ctx.partition.k = sub_k
     sub_ctx.partition.max_block_weights = np.asarray(budgets, dtype=np.int64)
     g = from_numpy_csr(sub.row_ptr, sub.col_idx, sub.node_w, sub.edge_w, device=device)
@@ -90,14 +101,21 @@ def _nested_partition(sub: HostCSR, sub_k: int, budgets: np.ndarray, ctx: Contex
 
 
 class DeepMultilevelPartitioner:
-    def __init__(self, ctx: Context, graph: CSRGraph):
+    def __init__(self, ctx: Context, graph: Optional[CSRGraph], *,
+                 compressed: Optional[CompressedGraph] = None, device=None):
+        """``graph``, or ``compressed`` (with ``graph`` None) and the
+        ``device`` to partition it on."""
         self.ctx = ctx
         self.graph = graph
+        self.compressed = compressed
+        self.device = graph.device if graph is not None else torch.device(device)
         # Host seconds of the three phases of the last partition() call
         # (and of the extension steps inside uncoarsening), and the number
         # of coarsening levels it built.
         self.phase_seconds = {}
         self.num_levels = 0
+        # The DeviceCompressedView the finest level ran off, if any.
+        self.compressed_view = None
 
     def _refine(self, graph: CSRGraph, part, cur_k: int, coarse: bool) -> PartitionedGraph:
         max_bw = intermediate_block_weights(
@@ -120,8 +138,19 @@ class DeepMultilevelPartitioner:
         k = ctx.partition.k
         C = ctx.coarsening.contraction_limit
         t0 = time.perf_counter()
-        coarsener = ClusterCoarsener(ctx, self.graph)
+        cview = None
+        if self.graph is None:
+            cview = build_device_view(ctx.compression, self.compressed, self.device)
+            self.compressed_view = cview
+            if cview is None:
+                self.graph = self.compressed.decompress(self.device)
+        coarsener = ClusterCoarsener(ctx, self.graph, compressed_view=cview)
         coarsest = coarsener.coarsen(k, ctx.partition.epsilon, 2 * C)
+        if self.compressed is not None and coarsener.num_levels > 0:
+            # Only the compressed form and the coarse graphs stay resident
+            # until uncoarsening is back at level 0.
+            coarsener.release_input_graph(self.compressed)
+            self.graph = None
         self.num_levels = coarsener.num_levels
         t1 = time.perf_counter()
 

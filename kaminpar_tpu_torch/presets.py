@@ -1,4 +1,5 @@
-"""Named presets: ``default`` and ``fast`` (as in ``kaminpar_tpu/presets.py``)."""
+"""Named presets: ``default``, ``fast`` and ``terapart`` (as in
+``kaminpar_tpu/presets.py``)."""
 
 from __future__ import annotations
 
@@ -31,7 +32,21 @@ def create_fast_context() -> Context:
     return ctx
 
 
-_PRESETS = {"default": create_default_context, "fast": create_fast_context}
+def create_terapart_context() -> Context:
+    """The memory tier: the default pipeline over a compressed input graph,
+    the finest level running off the device-resident compressed stream."""
+    ctx = create_default_context()
+    ctx.preset_name = "terapart"
+    ctx.compression.enabled = True
+    ctx.compression.device_decode = "auto"
+    return ctx
+
+
+_PRESETS = {
+    "default": create_default_context,
+    "fast": create_fast_context,
+    "terapart": create_terapart_context,
+}
 
 
 def create_context_by_preset_name(name: str) -> Context:

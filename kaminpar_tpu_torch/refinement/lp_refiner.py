@@ -2,7 +2,10 @@
 dense branch of ``kaminpar_tpu/refinement/lp_refiner.py``).
 
 The label space is padded to ``num_labels_bucket(k)``: pad labels carry
-weight 0 and cap 0 and are adjacent to nothing, so they are inert.
+weight 0 and cap 0 and are adjacent to nothing, so they are inert.  On the
+finest graph of the TeraPart tier, which carries the
+``DeviceCompressedView`` it was decoded from, the pass rates off the
+compressed stream (same draws, same result as the dense pass).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ class LPRefiner(Refiner):
     def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
         graph = p_graph.graph
         pv = graph.padded()
-        bv = graph.bucketed()
+        cview = graph._compressed_view
+        layout = cview if cview is not None else graph.bucketed()
         k = p_graph.k
         k_pad = lp.num_labels_bucket(k)
         part = pv.pad_node_array(p_graph.partition, 0)  # pads are inert (w=0)
@@ -35,9 +39,9 @@ class LPRefiner(Refiner):
         allow_tie_moves = self.ctx.allow_tie_moves
         state = lp.lp_iterate_bucketed(
             state,
-            lambda _: lp.draw_lp_round(gen, bv, pv.n_pad, active_prob=active_prob,
+            lambda _: lp.draw_lp_round(gen, layout, pv.n_pad, active_prob=active_prob,
                                        allow_tie_moves=allow_tie_moves),
-            bv, pv.node_w, max_w,
+            layout, pv.node_w, max_w,
             int(self.ctx.min_moved_fraction * pv.n), self.ctx.num_iterations,
             num_labels=k_pad, active_prob=active_prob,
             allow_tie_moves=allow_tie_moves,

@@ -15,7 +15,9 @@ import torch
 
 import kaminpar_tpu_torch as kp
 from kaminpar_tpu_torch.graph import generators
+from kaminpar_tpu_torch.graph.compressed import compress
 from kaminpar_tpu_torch.graph.csr import from_edge_list
+from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
 from kaminpar_tpu_torch.ops import lp, lp_kernels
 from kaminpar_tpu_torch.refinement import balancer
 
@@ -83,6 +85,47 @@ def test_rate_kernel_matches_plain(cuda, name):
             out = lp_kernels.rate_bucket(*to(args, cuda), to(b, cuda), tie.to(cuda), **flags)
             torch.cuda.synchronize()
             assert_equal(ref, out, f"{name} {inst} {flags} w={b.cols.shape[1]}")
+
+
+def weighted_grid():
+    """grid2d_graph(40, 40) with random edge weights: a weighted stream."""
+    g = generators.grid2d_graph(40, 40)
+    u, v = g.edge_u.numpy(), g.col_idx.numpy()
+    keep = u < v
+    w = np.random.default_rng(9).integers(1, 20, int(keep.sum()))
+    return from_edge_list(g.n, np.stack([u[keep], v[keep]], axis=1), edge_weights=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat", "grid", "weighted-grid", "hub"])
+def test_rate_compressed_kernel_matches_plain(cuda, name):
+    """Kernel #2 on the card against its plain version (decode, then the
+    plain rating) on the CPU, on every bucket of the compressed layout."""
+    g = weighted_grid() if name == "weighted-grid" else make_graph(name)
+    cg = compress(g)
+    cv, dcv = DeviceCompressedView(cg, "cpu"), DeviceCompressedView(cg, cuda)
+    assert cv.stream.weighted == (name in ("rmat", "weighted-grid", "hub"))
+    gen = torch.Generator().manual_seed(6)
+    for inst, external_only, respect_caps, tie_break in RATE_CONFIGS:
+        L = cv.n_pad if inst == "cluster" else 64
+        hi = cv.n_pad // 3 if inst == "cluster" else 8
+        labels = torch.randint(0, hi, (cv.n_pad,), generator=gen, dtype=torch.int32)
+        lw = torch.zeros(L, dtype=torch.int32).index_add_(0, labels, cv.node_w_pad)
+        maxw = (torch.tensor(5, dtype=torch.int32) if inst == "cluster"
+                else torch.full((L,), int(lw.max()), dtype=torch.int32))
+        flags = dict(external_only=external_only, respect_caps=respect_caps,
+                     tie_break=tie_break)
+        for cb, dcb in zip(cv.buckets, dcv.buckets):
+            tie = torch.randint(0, I32MAX, (int(cb.nodes.shape[0]), cb.w), generator=gen,
+                                dtype=torch.int32)
+            args = (labels, cv.node_w_pad, lw, maxw)
+            ref = lp_kernels.rate_compressed_bucket(*args, cv.stream, cb, tie, **flags)
+            before = lp_kernels.LAUNCHES["lp_rate_compressed"]
+            out = lp_kernels.rate_compressed_bucket(*to(args, cuda), dcv.stream, dcb,
+                                                    tie.to(cuda), **flags)
+            torch.cuda.synchronize()
+            assert lp_kernels.LAUNCHES["lp_rate_compressed"] == before + 1
+            assert_equal(ref, out, f"{name} {inst} {flags} w={cb.w}")
 
 
 @pytest.mark.cuda
@@ -162,6 +205,23 @@ def test_partition_on_card_launches_both_kernels(cuda):
     assert solver.last_partition.is_feasible()
     assert part.shape == (g.n,) and set(np.unique(part)) == set(range(8))
     assert lp_kernels.LAUNCHES["lp_rate"] > 0 and lp_kernels.LAUNCHES["lp_commit"] > 0
+
+
+@pytest.mark.cuda
+def test_terapart_on_card_runs_off_the_stream(cuda):
+    """The terapart path on the card: the decode-fused kernel runs, and the
+    partition equals the one of device_decode="off"."""
+    g = generators.rmat_graph(12, 8, seed=1)
+    parts = {}
+    for mode in ("off", "finest"):
+        lp_kernels.reset_launches()
+        solver = kp.KaMinPar("terapart")
+        solver.ctx.compression.device_decode = mode
+        solver.set_graph(g)
+        parts[mode] = solver.compute_partition(8)
+        assert solver.last_partition.is_feasible()
+        assert (lp_kernels.LAUNCHES["lp_rate_compressed"] > 0) == (mode == "finest")
+    assert np.array_equal(parts["off"], parts["finest"])
 
 
 @pytest.mark.cuda

@@ -50,6 +50,13 @@ def test_partitions_with_jax_unimportable():
         "s.set_graph(g)\n"
         "part = s.compute_partition(2)\n"
         "assert s.last_partition.is_feasible() and part.shape == (144,)\n"
+        "t = kp.KaMinPar('terapart', device='cpu')\n"
+        "t.ctx.coarsening.contraction_limit = 20\n"
+        "t.set_graph(g)\n"
+        "part = t.compute_partition(2)\n"
+        "assert t.last_partitioner.compressed_view is not None\n"
+        "assert t.last_partitioner.num_levels >= 1\n"
+        "assert t.last_partition.is_feasible() and part.shape == (144,)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v)\n"
         "print('ok')\n"
     )
