@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 22, k = 16, cuda:0
     python3 chip_smoke.py --scale 16      # a quicker run
+    python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
 
 ``rmat_graph(scale, 16, seed=1)`` is generated once.  Phases, each of
 which fails the run when it fails:
@@ -42,6 +43,15 @@ which fails the run when it fails:
 8. a small graph partitioned on the card and on the CPU: both feasible,
    cuts within 1.3x of each other.
 
+The rating kernels are also timed bucket by bucket: one JSON line per
+bucket with its width, rows, real rows, time and bound, beside the
+earlier slices' bound (which counted pad rows and a bitonic network).
+
+A kernel's ``ms`` is its time on the card: the card sleeps while the host
+queues the timed calls.  Each kernel's own line also gives
+``host_paced_ms``, the same calls timed with the card starting at once,
+which includes the wrapper's host overhead where that is the longer.
+
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with
@@ -78,9 +88,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+# Cycles the card sleeps before a timed run, so that the host has queued
+# the run's launches before the start event: about 10 ms at the H100's
+# clocks, longer than the host takes to queue 20 calls of a wrapper.
+SLEEP_AHEAD_CYCLES = 20_000_000
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2, sleep_ahead: bool = True) -> float:
     """Mean milliseconds of ``fn()`` over ``iters`` back-to-back calls,
-    timed with CUDA events after ``warmup`` calls."""
+    timed with CUDA events after ``warmup`` calls.  With ``sleep_ahead``
+    the card sleeps first while the host queues the calls, so a call whose
+    device time is below the host's time to launch it is timed on the
+    device, not the host.  Without it the card starts at once, and a call
+    that is quicker on the card than on the host is timed at the host's
+    pace: the wrapper's overhead that the path pays on every launch."""
     import torch
 
     for _ in range(warmup):
@@ -88,6 +109,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if sleep_ahead:
+        torch.cuda._sleep(SLEEP_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -218,26 +241,37 @@ def finest_graph(graph, k, device):
     return from_numpy_csr(rp, col, nw, graph.edge_w.numpy(), device=device)
 
 
-def rate_pass_bytes(bv, n_pad: int, L: int, maxw_len: int) -> int:
-    """Bytes one rating pass over all buckets must move: each input read
-    once (the label, node-weight, label-weight and cap tables, and every
-    bucket's nodes, cols, wgts, tie) and each output written once."""
-    total = 4 * (2 * n_pad + L + maxw_len)
-    for b in bv.buckets:
-        R, w = b.cols.shape
-        total += 4 * R + 3 * 4 * R * w + R * (3 * 4 + 1)
-    return total
+def table_bytes(n_pad: int, L: int, maxw_len: int) -> int:
+    """The label, node-weight, label-weight and cap tables, read once."""
+    return 4 * (2 * n_pad + L + maxw_len)
 
 
-def rate_pass_ops(shapes) -> int:
-    """Integer operations one rating pass over buckets of these (R, w)
-    shapes must do at the least: the compare-exchanges of a bitonic sort of
-    every row, and one add and one max per slot for the run reduction."""
-    total = 0
-    for R, w in shapes:
-        lg = w.bit_length() - 1
-        total += R * (w // 2) * lg * (lg + 1) // 2 + 2 * R * w
-    return total
+def dense_bucket_bytes(R: int, real: int, w: int) -> int:
+    """Bytes one dense bucket must move: the node, cols, wgts and tie of its
+    real rows (pad rows have a fixed answer) and the four outputs of all
+    rows."""
+    return 4 * real + 3 * 4 * real * w + R * (3 * 4 + 1)
+
+
+def dense_bucket_bytes_all_rows(R: int, w: int) -> int:
+    """The bound of the earlier slices: every row's inputs, pad rows too."""
+    return dense_bucket_bytes(R, R, w)
+
+
+def rating_ops(rows: int, w: int) -> int:
+    """Least integer operations of rating ``rows`` rows of width ``w``,
+    whatever the design: a comparison sort of each row (w log2 w
+    comparisons) and, per slot, the label gather's address, the own-label
+    test and add, the run-sum add and the run-end test."""
+    lg = w.bit_length() - 1
+    return rows * w * (lg + 4)
+
+
+def bitonic_ops(R: int, w: int) -> int:
+    """The operation count of the earlier slices: a bitonic network's
+    compare-exchanges over every row, one design's work."""
+    lg = w.bit_length() - 1
+    return R * (w // 2) * lg * (lg + 1) // 2 + 2 * R * w
 
 
 def commit_bytes(n: int, L: int, maxw_len: int, act: bool, coin: bool) -> int:
@@ -249,6 +283,31 @@ def bound(nbytes: int, ops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_buckets(kernel: str, launch, buckets) -> list:
+    """Times ``launch(i)`` on every bucket ``i`` alone and logs one line per
+    bucket: its shape, real rows, time, and its bound beside the earlier
+    slices' bound.  ``buckets`` holds per bucket ``(w, R, real, nbytes,
+    ops, old_bytes, old_ops)``."""
+    lines = []
+    for i, (w, R, real, nbytes, ops, old_bytes, old_ops) in enumerate(buckets):
+        bound_ms, bound_by = bound(nbytes, ops)
+        line = dict(kernel=kernel, bucket=i, w=w, R=R, real_rows=real,
+                    ms=cuda_time_ms(lambda: launch(i), iters=20), bound_ms=bound_ms,
+                    bound_by=bound_by, old_bound_ms=bound(old_bytes, old_ops)[0])
+        log(json.dumps(line))
+        lines.append(line)
+    return lines
+
+
+def pass_bounds(buckets, tables: int, extra_ops: int = 0):
+    """(bound_ms, bound_by, old_bound_ms) of one pass over ``buckets`` (as
+    for time_buckets), the tables read once."""
+    nbytes = tables + sum(b[3] for b in buckets)
+    ops = extra_ops + sum(b[4] for b in buckets)
+    old = bound(tables + sum(b[5] for b in buckets), extra_ops + sum(b[6] for b in buckets))
+    return (*bound(nbytes, ops), old[0])
 
 
 # The rating kernels' inputs as the path gives them: (instantiation,
@@ -285,6 +344,14 @@ def rating_tables(inst: str, node_w, k: int, randint):
     return labels, lw, maxw, L
 
 
+def rate_dense(labels, node_w, lw, maxw, bv, i: int, tie, **flags):
+    """Kernel #1 on bucket ``i`` of ``bv``, as the LP round calls it."""
+    from kaminpar_tpu_torch.ops import lp_kernels
+
+    return lp_kernels.rate_bucket(labels, node_w, lw, maxw, bv.buckets[i], tie,
+                                  real_rows=bv.real_rows[i], **flags)
+
+
 def phase_kernels(work, device, k: int):
     """Each kernel against its plain version, both on the card, on the
     inputs the finest graph's bucketed layout gives them."""
@@ -312,9 +379,9 @@ def phase_kernels(work, device, k: int):
         ties = [randint(0, 2**31 - 1, s) for s in shapes]
         args = (labels, pv.node_w, lw, maxw)
         flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
-        for b, tie in zip(bv.buckets, ties):
+        for i, (b, tie) in enumerate(zip(bv.buckets, ties)):
             ref = bucketed_gains._bucket_moves(labels, b, pv.node_w, lw, maxw, tie, **flags)
-            out = lp_kernels.rate_bucket(*args, b, tie, **flags)
+            out = rate_dense(*args, bv, i, tie, **flags)
             err = max_abs_err(ref, out)
             if err:
                 raise AssertionError(f"rating kernel != plain: {inst} {flags} w={b.cols.shape[1]}")
@@ -325,23 +392,30 @@ def phase_kernels(work, device, k: int):
             f"equal on {len(shapes)} buckets")
 
     def kernel_pass():
-        for b, tie in zip(bv.buckets, timed["ties"]):
-            lp_kernels.rate_bucket(*timed["args"], b, tie, **timed["flags"])
+        for i, tie in enumerate(timed["ties"]):
+            rate_dense(*timed["args"], bv, i, tie, **timed["flags"])
 
     def plain_pass():
         labels, node_w, lw, maxw = timed["args"]
         for b, tie in zip(bv.buckets, timed["ties"]):
             bucketed_gains._bucket_moves(labels, b, node_w, lw, maxw, tie, **timed["flags"])
 
-    bound_ms, bound_by = bound(
-        rate_pass_bytes(bv, n_pad, timed["L"], timed["maxw_len"]),
-        rate_pass_ops(bv.bucket_shapes))
+    buckets = [(w, R, real, dense_bucket_bytes(R, real, w), rating_ops(real, w),
+                dense_bucket_bytes_all_rows(R, w), bitonic_ops(R, w))
+               for (R, w), real in zip(shapes, bv.real_rows)]
+    bound_ms, bound_by, old_bound_ms = pass_bounds(
+        buckets, table_bytes(n_pad, timed["L"], timed["maxw_len"]))
     rate = dict(
         kernel="lp_rate", what="one rating pass over all buckets of the finest graph, "
         "clustering instantiation", kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+        host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
         plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=rate_err,
+        bound_ms=bound_ms, bound_by=bound_by, old_bound_ms=old_bound_ms, library_ms=None,
+        max_abs_err=rate_err,
     )
+    rate["buckets"] = time_buckets(
+        "lp_rate", lambda i: rate_dense(*timed["args"], bv, i, timed["ties"][i],
+                                        **timed["flags"]), buckets)
     log(json.dumps(rate))
 
     # -- commit kernel: the clustering instantiation (n = L = n_pad, scalar
@@ -416,6 +490,8 @@ def time_commit(call, err: int, where: str) -> dict:
         kernel="lp_commit", what=f"one commit at {where}, clustering instantiation "
         f"(n = L = {n}, {'radix' if opts['radix'] else 'bitwise'} auction)",
         kernel_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20),
+        host_paced_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20,
+                                   sleep_ahead=False),
         plain_ms=cuda_time_ms(lambda: lp._commit_moves(*call, **opts), iters=3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err,
     )
@@ -423,30 +499,32 @@ def time_commit(call, err: int, where: str) -> dict:
     return meas
 
 
-def compressed_pass_bytes(cg, cv, L: int, maxw_len: int) -> int:
-    """Bytes one compressed rating pass must move: each input read once
-    (the label, node-weight, label-weight and cap tables; per bucket row
-    its node, word start, width, degree and edge start; the tie matrix;
-    the stream words and, when weighted, the edge weights of the bucketed
-    nodes) and each output written once."""
+def compressed_buckets(cg, cv) -> list:
+    """Per bucket of the compressed view, as time_buckets takes them.  The
+    bytes a bucket must move: per real row its node, word start, width,
+    degree and edge start; the stream words and, when weighted, the edge
+    weights of its rows; the tie entries of the rows with edges (a row of
+    degree 0 has a fixed answer, as do pad rows); the four outputs of all
+    rows.  The operations: the rating's (rating_ops) over the rows with
+    edges plus, per edge, the least decode work (a funnel shift, a mask,
+    the zig-zag shift, and, xor, and the cumsum add).  The earlier slices'
+    bound counted every row's metadata and tie row and a bitonic network."""
     import numpy as np
 
-    light = cg.degree <= 4096  # heavy rows take the flat path, not the kernel
-    words = np.diff(cg.word_start.astype(np.int64))[light].sum()
-    edges = cg.degree[light].astype(np.int64).sum()
-    total = 4 * (2 * cv.n_pad + L + maxw_len) + 4 * int(words)
-    total += 4 * int(edges) if cv.stream.weighted else 0
-    for R, w in cv.bucket_shapes:
-        total += 5 * 4 * R + 4 * R * w + R * (3 * 4 + 1)
-    return total
-
-
-def compressed_pass_ops(cg, cv) -> int:
-    """The dense pass's operations plus, per real slot, the least decode
-    work: a funnel shift, a mask, the zig-zag decode (shift, and, xor) and
-    the cumsum add."""
-    edges = int(cg.degree[cg.degree <= 4096].astype("int64").sum())
-    return rate_pass_ops(cv.bucket_shapes) + 6 * edges
+    words_of = np.diff(cg.word_start.astype(np.int64))
+    out = []
+    for cb, real in zip(cv.buckets, cv.real_rows):
+        R, w = int(cb.nodes.shape[0]), cb.w
+        nodes = cb.nodes[:real].cpu().numpy()
+        deg = cg.degree[nodes].astype(np.int64)
+        words, edges, busy = int(words_of[nodes].sum()), int(deg.sum()), int((deg > 0).sum())
+        stream = 4 * words + (4 * edges if cv.stream.weighted else 0)
+        out.append((w, R, real,
+                    20 * real + stream + 4 * busy * w + 13 * R,
+                    rating_ops(busy, w) + 6 * edges,
+                    20 * R + stream + 4 * R * w + 13 * R,
+                    bitonic_ops(R, w) + 6 * edges))
+    return out
 
 
 def phase_compressed_kernel(cg, device, k: int):
@@ -512,16 +590,23 @@ def phase_compressed_kernel(cg, device, k: int):
                     lp_kernels.rate_compressed_bucket_plain(*timed["args"], cv.stream, cb,
                                                             tie, **timed["flags"])
 
-            bound_ms, bound_by = bound(
-                compressed_pass_bytes(vcg, cv, timed["L"], timed["maxw_len"]),
-                compressed_pass_ops(vcg, cv))
+            buckets = compressed_buckets(vcg, cv)
+            bound_ms, bound_by, old_bound_ms = pass_bounds(
+                buckets, table_bytes(n_pad, timed["L"], timed["maxw_len"]))
             meas = dict(
                 kernel="lp_rate_compressed", what="one compressed rating pass over all "
                 "buckets of the finest graph, clustering instantiation, its own stream",
                 kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+                host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
                 plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, old_bound_ms=old_bound_ms,
+                library_ms=None,
             )
+            meas["buckets"] = time_buckets(
+                "lp_rate_compressed",
+                lambda i: lp_kernels.rate_compressed_bucket(
+                    *timed["args"], cv.stream, cv.buckets[i], timed["ties"][i],
+                    **timed["flags"]), buckets)
             # The commit at the level-0 clustering of the terapart path: the
             # isolated nodes stay in, so L = n_pad picks the auction there.
             call = clustering_commit_call(cv.node_w_pad, cv.n, cv.anchor, randint, gen)
@@ -723,6 +808,9 @@ def phase_small_reference():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale (2^scale nodes)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check and time the kernels (phases 1-3 and the kernel "
+                    "part of 6) and stop: no path runs, no result line")
     args = ap.parse_args()
 
     name, count, smi = phase_device()
@@ -750,6 +838,12 @@ def main() -> int:
     terapart.set_graph(graph)  # compresses on the host
     compress_s = time.perf_counter() - t0
     rate_c, commit = phase_compressed_kernel(terapart.compressed_graph, device, K)
+    if args.kernels_only:
+        del terapart, graph
+        torch.cuda.empty_cache()
+        phase_kernels(finest_graph(rmat(args.scale - 2), K, device), device, K)
+        log(smi)
+        return 0
     tinfo = phase_terapart_path(terapart, graph, K, EPSILON, compress_s)
     del terapart, graph
     torch.cuda.empty_cache()

@@ -14,7 +14,9 @@ Layout conventions:
 - pad slots inside a row: ``col = the row's own node id``, weight 0 (an
   inert zero-weight run of the node's own label); heavy pad slots use
   ``col = anchor``;
-- pad rows: ``node = anchor``; their results are never gathered;
+- pad rows: ``node = anchor``; their results are never gathered, and
+  ``real_rows`` (a host integer per bucket) says where they begin, so the
+  rating kernel answers them without loading their slots;
 - ``gather_idx[u]`` = position of node u's row in the concatenation of
   all bucket rows (buckets in order, then heavy rows).
 """
@@ -51,6 +53,7 @@ class BucketedView(NamedTuple):
     heavy: HeavyPart
     gather_idx: torch.Tensor  # (n,)
     n: int
+    real_rows: Tuple[int, ...]  # rows before the pad rows, per bucket
 
     @property
     def bucket_shapes(self):
@@ -102,13 +105,14 @@ def build_bucketed_view(row_ptr: np.ndarray, col_idx: torch.Tensor,
     rp_t = torch.from_numpy(rp[: n + 1]).to(dev)
     deg_t = torch.from_numpy(deg).to(dev)
 
-    buckets = []
+    buckets, real_rows = [], []
     offsets = np.zeros(n, dtype=np.int64)
     offset = 0
     for w in sorted(int(x) for x in np.unique(width[~heavy_mask])):
         nodes = np.nonzero((~heavy_mask) & (width == w))[0]
         R = len(nodes)
         R_pad = next_pow2(R, 8)
+        real_rows.append(R)
         nodes_t = torch.from_numpy(nodes).to(dev)
         slot = torch.arange(w, dtype=torch.int64, device=dev)
         idx = rp_t[nodes_t][:, None] + slot[None, :]
@@ -158,4 +162,5 @@ def build_bucketed_view(row_ptr: np.ndarray, col_idx: torch.Tensor,
         heavy=heavy,
         gather_idx=torch.from_numpy(offsets.astype(np.int32)).to(dev),
         n=n,
+        real_rows=tuple(real_rows),
     )

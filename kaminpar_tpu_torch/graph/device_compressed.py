@@ -194,7 +194,9 @@ class DeviceCompressedView:
 
     Resident: the :class:`CompressedStream`, per-node ``node_w / degree /
     wstart / width`` (``n_pad``, as the dense PaddedView), the per-bucket
-    row metadata, the dense heavy part and ``gather_idx``.  The m-sized
+    row metadata, the dense heavy part and ``gather_idx``.  ``real_rows``
+    (host integers) counts each bucket's rows before its pad rows, as the
+    dense ``BucketedView.real_rows`` does.  The m-sized
     structural arrays (col_idx, edge_u, the bucketed neighbour matrices)
     exist only inside the kernels and the level-0 contraction.
     """
@@ -232,7 +234,8 @@ class DeviceCompressedView:
         self.degree_pad = node_array(deg, 0)
         self.wstart_pad = node_array(wstart, 0)
         self.width_pad = node_array(width, 1)
-        self.buckets, self.heavy, self.gather_idx = self._build_buckets(deg, wstart, width)
+        self.buckets, self.heavy, self.gather_idx, self.real_rows = self._build_buckets(
+            deg, wstart, width)
         self.total_node_weight = int(node_w.astype(np.int64).sum())
         self.max_node_weight = int(node_w.max(initial=0))
         self.total_edge_weight = (self.m if cg.edge_w is None
@@ -257,13 +260,14 @@ class DeviceCompressedView:
         n, anchor = self.n, self.anchor
         erp = np.concatenate([[0], np.cumsum(deg)])  # decode-order row_ptr
         bwidth, heavy_mask = node_width_plan(deg)
-        buckets = []
+        buckets, real_rows = [], []
         offsets = np.zeros(n, dtype=np.int64)
         offset = 0
         for w in sorted(int(x) for x in np.unique(bwidth[~heavy_mask])):
             nodes = np.nonzero((~heavy_mask) & (bwidth == w))[0]
             R = len(nodes)
             R_pad = next_pow2(R, 8)
+            real_rows.append(R)
 
             def rows(values, pad_value):
                 out = np.full(R_pad, pad_value, dtype=np.int32)
@@ -299,7 +303,8 @@ class DeviceCompressedView:
         else:
             z = torch.zeros(0, dtype=torch.int32, device=self.device)
             heavy = HeavyPart(z, z, z, z)
-        return tuple(buckets), heavy, self._put(offsets.astype(np.int32))
+        return (tuple(buckets), heavy, self._put(offsets.astype(np.int32)),
+                tuple(real_rows))
 
     def row_ptr_like(self) -> torch.Tensor:
         """(n_pad + 1,) twin of the dense PaddedView's row_ptr (cached; the

@@ -180,8 +180,8 @@ def bucketed_best_moves(labels, bv: BucketedView, node_w, label_weights,
     outs = [
         rate_bucket(labels, node_w, label_weights, max_label_weights, b, tie,
                     external_only=external_only, respect_caps=respect_caps,
-                    tie_break=tie_break)
-        for b, tie in zip(bv.buckets, ties)
+                    tie_break=tie_break, real_rows=real)
+        for b, tie, real in zip(bv.buckets, ties, bv.real_rows)
     ]
     if bv.heavy.nodes.shape[0] > 0:
         outs.append(_heavy_moves(

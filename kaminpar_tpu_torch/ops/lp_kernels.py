@@ -54,6 +54,10 @@ LAUNCHES = {"lp_rate": 0, "lp_rate_compressed": 0, "lp_commit": 0}
 # and how long it took; empty when the library came from an earlier build.
 BUILD_INFO = {"seconds": None, "log": ""}
 
+# Widest rows the rating kernels rate one warp per row; wider rows take
+# one block per row (csrc/lp_rate.cu kWarpMaxWidth, checked at load).
+WARP_MAX_WIDTH = 64
+
 _lib = None
 _lock = threading.Lock()
 
@@ -121,17 +125,24 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
-            lib.kp_rate_bucket.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, I, I,
-                                           P, P, P, P, P]
+            lib.kp_rate_bucket.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, I, I, I,
+                                           I, I, P, P, P, P, P]
             lib.kp_rate_bucket.restype = I
             lib.kp_rate_compressed_bucket.argtypes = [P, P, P, P, I, P, I, P, I, I, P, P,
-                                                      P, P, P, P, I, I, I, I, I, P, P, P,
-                                                      P, P]
+                                                      P, P, P, P, I, I, I, I, I, I, I, P,
+                                                      P, P, P, P]
             lib.kp_rate_compressed_bucket.restype = I
             lib.kp_commit_moves.argtypes = [I, I, P, P, P, P, I, P, P, P, P, P, P, P,
                                             I, I, I, I, P, P, P, P, P, P, P, P, P, P, P,
                                             P]
             lib.kp_commit_moves.restype = I
+            lib.kp_rate_warp_max_width.argtypes = []
+            lib.kp_rate_warp_max_width.restype = I
+            if lib.kp_rate_warp_max_width() != WARP_MAX_WIDTH:
+                raise RuntimeError(
+                    f"csrc/lp_rate.cu's warp path takes rows up to "
+                    f"{lib.kp_rate_warp_max_width()}, the wrapper plans keys for "
+                    f"{WARP_MAX_WIDTH}")
             _lib = lib
     return _lib
 
@@ -174,6 +185,17 @@ def _check_bucket_shape(R: int, w: int) -> None:
         raise ValueError(f"bucket shape ({R}, {w}) is not a power-of-two bucket")
 
 
+def sort_key_plan(num_labels: int, w: int):
+    """(label_bits, key64) of the rating kernels' sort for ``num_labels``
+    labels (the length of the label-weight table; labels lie in [0, L))
+    and rows of width ``w``: the label's significant bits, ceil(log2 L)
+    and at least 1, which the block path (w > WARP_MAX_WIDTH) radix-sorts;
+    and whether the warp path needs 64-bit (label, slot) keys, when
+    label_bits + log2 w > 32."""
+    label_bits = max(1, (int(num_labels) - 1).bit_length())
+    return label_bits, w <= WARP_MAX_WIDTH and label_bits + w.bit_length() - 1 > 32
+
+
 def _check_rate_tables(labels, node_w, label_weights, max_label_weights, dev):
     """Checks the rating kernels' node and label tables; returns the cap as
     a (1,) or (L,) tensor and whether it is a scalar."""
@@ -199,10 +221,20 @@ def _stream_ptr(dev):
 
 
 def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *,
-                external_only: bool, respect_caps: bool, tie_break: str = "uniform"):
+                real_rows: int, external_only: bool, respect_caps: bool,
+                tie_break: str = "uniform"):
     """Best move of every row of one (R, w) bucket: (target, tconn,
-    own_conn, has), each (R,).  Kernel #1 on CUDA tensors."""
+    own_conn, has), each (R,).  Kernel #1 on CUDA tensors.  ``real_rows``
+    (the layout's host count, ``BucketedView.real_rows``) is where the pad
+    rows begin: the kernel answers them ``(labels[node], 0,
+    0, False)``, which is what rating them gives, without loading their
+    slots.  Labels lie in ``[0, len(label_weights))`` and ties are >= 0,
+    as the LP round draws them."""
     nodes, cols, wgts = bucket
+    R, w = cols.shape
+    real_rows = int(real_rows)
+    if not 0 <= real_rows <= R:
+        raise ValueError(f"real_rows {real_rows} is outside [0, {R}]")
     if not _route(labels, node_w, label_weights, max_label_weights, nodes, cols,
                   wgts, tie):
         return bucketed_gains._bucket_moves(
@@ -212,7 +244,6 @@ def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *
         )
     if tie_break not in ("uniform", "lightest"):
         raise ValueError(f"unknown tie_break {tie_break!r}")
-    R, w = cols.shape
     _check_bucket_shape(R, w)
     dev = cols.device
     i32 = torch.int32
@@ -222,10 +253,16 @@ def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *
     _check("wgts", wgts, i32, (R, w), dev)
     _check("cols", cols, i32, (R, w), dev)
     _check("tie", tie, i32, (R, w), dev)
+    for name, t in (("cols", cols), ("wgts", wgts)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
+                             "it must be 16-byte aligned")
+    label_bits, key64 = sort_key_plan(label_weights.shape[0], w)
     target, tconn, own_conn, has = _rate_outputs(R, dev)
     err = _library().kp_rate_bucket(
         _ptr(labels), _ptr(node_w), _ptr(label_weights), _ptr(maxw),
         int(maxw_scalar), _ptr(nodes), _ptr(cols), _ptr(wgts), _ptr(tie), R, w,
+        real_rows, label_bits, int(key64),
         int(external_only), int(respect_caps), int(tie_break == "lightest"),
         _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(has), _stream_ptr(dev),
     )
@@ -276,12 +313,13 @@ def rate_compressed_bucket(labels, node_w, label_weights, max_label_weights,
     for name, t in zip(("nodes", "wstart", "width", "deg", "estart"), cb[:5]):
         _check(name, t, i32, (R,), dev)
     _check("tie", tie, i32, (R, w), dev)
+    label_bits, key64 = sort_key_plan(label_weights.shape[0], w)
     target, tconn, own_conn, has = _rate_outputs(R, dev)
     err = _library().kp_rate_compressed_bucket(
         _ptr(labels), _ptr(node_w), _ptr(label_weights), _ptr(maxw),
         int(maxw_scalar), _ptr(words), int(words.shape[0]), _ptr(edge_w),
         int(edge_w.shape[0]), int(stream.weighted), *(_ptr(t) for t in cb[:5]),
-        _ptr(tie), R, w, int(external_only), int(respect_caps),
+        _ptr(tie), R, w, label_bits, int(key64), int(external_only), int(respect_caps),
         int(tie_break == "lightest"), _ptr(target), _ptr(tconn), _ptr(own_conn),
         _ptr(has), _stream_ptr(dev),
     )

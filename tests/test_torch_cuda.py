@@ -17,7 +17,9 @@ import kaminpar_tpu_torch as kp
 from kaminpar_tpu_torch.graph import generators
 from kaminpar_tpu_torch.graph.compressed import compress
 from kaminpar_tpu_torch.graph.csr import from_edge_list
-from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
+from kaminpar_tpu_torch.graph.bucketed import Bucket
+from kaminpar_tpu_torch.graph.device_compressed import (CompressedBucket, CompressedStream,
+                                                        DeviceCompressedView)
 from kaminpar_tpu_torch.ops import lp, lp_kernels
 from kaminpar_tpu_torch.refinement import balancer
 
@@ -50,9 +52,12 @@ def cuda():
 
 
 def to(x, dev):
-    """A tensor, or a NamedTuple of tensors, on ``dev``."""
+    """A tensor, or a NamedTuple of tensors, on ``dev`` (other fields as
+    they are)."""
     if isinstance(x, torch.Tensor):
         return x.to(dev)
+    if not isinstance(x, tuple):
+        return x
     items = [None if v is None else to(v, dev) for v in x]
     return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 
@@ -77,12 +82,13 @@ def test_rate_kernel_matches_plain(cuda, name):
                 else torch.full((L,), int(lw.max()), dtype=torch.int32))
         flags = dict(external_only=external_only, respect_caps=respect_caps,
                      tie_break=tie_break)
-        for b in bv.buckets:
+        for b, real in zip(bv.buckets, bv.real_rows):
             tie = torch.randint(0, I32MAX, tuple(b.cols.shape), generator=gen,
                                 dtype=torch.int32)
             args = (labels, pv.node_w, lw, maxw)
-            ref = lp_kernels.rate_bucket(*args, b, tie, **flags)
-            out = lp_kernels.rate_bucket(*to(args, cuda), to(b, cuda), tie.to(cuda), **flags)
+            ref = lp_kernels.rate_bucket(*args, b, tie, real_rows=real, **flags)
+            out = lp_kernels.rate_bucket(*to(args, cuda), to(b, cuda), tie.to(cuda),
+                                         real_rows=real, **flags)
             torch.cuda.synchronize()
             assert_equal(ref, out, f"{name} {inst} {flags} w={b.cols.shape[1]}")
 
@@ -126,6 +132,145 @@ def test_rate_compressed_kernel_matches_plain(cuda, name):
             torch.cuda.synchronize()
             assert lp_kernels.LAUNCHES["lp_rate_compressed"] == before + 1
             assert_equal(ref, out, f"{name} {inst} {flags} w={cb.w}")
+
+
+# -- the rating body's edges on synthetic buckets ----------------------------
+
+WIDTHS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096]
+# (labels of a row's neighbours, L, weights, ties, label weights).  Every
+# row also gets labels at L - 1; L = 2^27 + 1 has 28 label bits, so rows of
+# w = 32 and 64 need 64-bit sort keys on the warp path (28 + 5 > 32), w =
+# 16 sits at the 32-bit limit, and wider rows sort 28 bits on the block
+# path.
+EDGE_CASES = {
+    "equal": ("equal", 2**6, "unit", "random", "random"),
+    "distinct": ("distinct", 2**20, "small", "random", "random"),
+    "two": ("two", 2**6, "unit", "dup", "random"),
+    "lightest-equal-weights": ("near-top", 2**23, "unit", "dup", "equal"),
+    "wrap": ("near-top", 2**20, "wrap", "random", "random"),
+    "wrap-distinct": ("distinct", 2**23, "wrap", "dup", "random"),
+    "wide-keys": ("near-top", 2**27 + 1, "small", "dup", "random"),
+}
+# (external_only, respect_caps, tie_break, scalar cap)
+EDGE_FLAGS = [
+    (False, True, "uniform", True),
+    (False, True, "lightest", False),
+    (False, False, "uniform", False),
+    (True, True, "uniform", False),
+    (False, False, "lightest", True),
+]
+
+
+def synthetic_rows(w, case, seed):
+    """One (R, w) bucket's rows in both layouts.  Every slot of a real row
+    is its own neighbour node (so its label is chosen freely); row 0 is
+    full, row 1 has degree 0, the others a random degree; the last quarter
+    of the rows are pad rows (node = anchor).  Returns (labels, node_w,
+    lw, dense Bucket, real_rows, CompressedStream, CompressedBucket, tie,
+    L)."""
+    label_mode, L, weight_mode, tie_mode, lw_mode = EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    R = 64 if w <= 256 else 16
+    real = R - R // 4
+    n_pad = R * w + R + 1
+    anchor = n_pad - 1
+    owners = np.arange(R * w, R * w + R)
+    labels = rng.integers(0, L, n_pad)
+    deg = rng.integers(0, w + 1, R)
+    deg[0], deg[1], deg[real:] = w, 0, 0
+    cols = np.empty((R, w), dtype=np.int64)
+    wgts = np.zeros((R, w), dtype=np.int64)
+    for r in range(R):
+        d = int(deg[r])
+        cols[r] = owners[r] if r < real else anchor
+        cols[r, :d] = r * w + rng.permutation(w)[:d]
+        if weight_mode == "unit":
+            wgts[r, :d] = 1
+        elif weight_mode == "small":
+            wgts[r, :d] = rng.integers(0, 4, d)
+        else:  # run sums and the row prefix wrap int32
+            wgts[r, :d] = rng.integers(2**29, 2**30, d)
+        slots = r * w + np.arange(w)
+        own = labels[owners[r]]
+        if label_mode == "equal":
+            labels[slots] = L - 1
+        elif label_mode == "two":
+            labels[slots] = np.where(rng.random(w) < 0.5, own, L - 1)
+        elif label_mode == "distinct":
+            labels[slots] = (rng.choice(L - 1, w, replace=False) if L - 1 >= w
+                             else rng.integers(0, L - 1, w))
+            labels[slots[0]] = L - 1
+        else:  # near-top: many runs just below L, own label among them
+            labels[slots] = np.where(rng.random(w) < 0.2, own, L - 1 - rng.integers(0, 8, w))
+    node_w = rng.integers(1, 4, n_pad)
+    lw = np.full(L, 5, dtype=np.int32) if lw_mode == "equal" else rng.integers(
+        0, 40, L, dtype=np.int32)
+    tie = rng.integers(0, 3 if tie_mode == "dup" else I32MAX, (R, w))
+    nodes = np.where(np.arange(R) < real, owners, anchor)
+
+    # The compressed layout: each row's gaps (the first from the node id),
+    # zig-zag, packed at the row's width from a word boundary.
+    words, wstart, width, estart, edge_w = [], [], [], [], []
+    for r in range(R):
+        d = int(deg[r])
+        gaps = np.diff(np.concatenate([[nodes[r]], cols[r, :d]]))
+        z = [int((g << 1) ^ (g >> 63)) for g in gaps]
+        wd = max([1] + [x.bit_length() for x in z])
+        acc = 0
+        for j, x in enumerate(z):
+            acc |= x << (j * wd)
+        wstart.append(len(words))
+        width.append(wd)
+        estart.append(len(edge_w))
+        words += [(acc >> (32 * i)) & 0xFFFFFFFF for i in range(-(-d * wd // 32))]
+        edge_w += list(wgts[r, :d])
+    words = np.array(words + [0, 0], dtype=np.uint32).view(np.int32)
+    i32 = torch.int32
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=i32)
+
+    stream = CompressedStream(t(words), t(edge_w + [0]))
+    cb = CompressedBucket(t(nodes), t(wstart), t(width), t(deg), t(estart), w)
+    return (t(labels), t(node_w), t(lw), Bucket(t(nodes), t(cols), t(wgts)), real, stream,
+            cb, t(tie), L)
+
+
+def edge_cap(L, scalar, seed):
+    if scalar:
+        return torch.tensor(30, dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(20, 60, L, dtype=np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+@pytest.mark.parametrize("w", WIDTHS)
+def test_rate_kernels_edge_cases_match_plain(cuda, w, case):
+    """Both rating kernels against their plain versions on synthetic
+    buckets of every width: label patterns, duplicated ties, equal label
+    weights under `lightest`, labels at L - 1 on both sides of the sort
+    key's 32-bit limit, pad rows, degree-0 rows and weights whose sums wrap
+    int32."""
+    labels, node_w, lw, b, real, stream, cb, tie, L = synthetic_rows(w, case, w + 7)
+    found = False
+    for i, (ext, caps, tie_break, scalar) in enumerate(EDGE_FLAGS):
+        maxw = edge_cap(L, scalar, i)
+        flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
+        args = (labels, node_w, lw, maxw)
+        ref = lp_kernels.rate_bucket(*args, b, tie, real_rows=real, **flags)
+        assert_equal(ref, lp_kernels.rate_compressed_bucket(*args, stream, cb, tie, **flags),
+                     f"plain versions differ: {case} w={w} {flags}")
+        dargs = to(args, cuda)
+        out = lp_kernels.rate_bucket(*dargs, to(b, cuda), tie.to(cuda), real_rows=real,
+                                     **flags)
+        outc = lp_kernels.rate_compressed_bucket(*dargs, to(stream, cuda), to(cb, cuda),
+                                                 tie.to(cuda), **flags)
+        torch.cuda.synchronize()
+        assert_equal(ref, out, f"kernel #1 {case} w={w} {flags}")
+        assert_equal(ref, outc, f"kernel #2 {case} w={w} {flags}")
+        found = found or bool(ref[3].any())
+    assert found, "no row found a move"
 
 
 @pytest.mark.cuda
@@ -233,7 +378,7 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     lw = torch.zeros(pv.n_pad, dtype=torch.int32, device=cuda)
     tie = torch.zeros(tuple(b.cols.shape), dtype=torch.int32, device=cuda)
     maxw = torch.tensor(3, dtype=torch.int32, device=cuda)
-    flags = dict(external_only=False, respect_caps=True)
+    flags = dict(real_rows=bv.real_rows[0], external_only=False, respect_caps=True)
     with pytest.raises(TypeError):
         lp_kernels.rate_bucket(labels.long(), pv.node_w.to(cuda), lw, maxw, b, tie, **flags)
     with pytest.raises(ValueError):

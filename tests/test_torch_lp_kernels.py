@@ -26,7 +26,9 @@ from kaminpar_tpu.ops import pallas_lp
 from kaminpar_tpu.refinement import balancer as jbal
 from kaminpar_tpu.utils import next_key
 from kaminpar_tpu_torch.graph import generators as tgen
+from kaminpar_tpu_torch.graph.compressed import compress
 from kaminpar_tpu_torch.graph.csr import from_edge_list
+from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
 from kaminpar_tpu_torch.ops import lp as tlp
 from kaminpar_tpu_torch.ops import lp_kernels
 from kaminpar_tpu_torch.refinement import balancer as tbal
@@ -52,10 +54,19 @@ def _hub_edges():
 
 def graph_pair(name):
     """The same graph built by both packages; ``hub`` has one node of
-    degree 4300 > MAX_WIDTH, which takes the flat heavy path."""
+    degree 4300 > MAX_WIDTH, which takes the flat heavy path;
+    ``rmat-heavy`` is ``rmat`` with edge weights in [2^27, 2^28), so that
+    the rows' weight sums wrap int32."""
     if name == "hub":
         n, edges = _hub_edges()
         return jax_from_edge_list(n, edges), from_edge_list(n, edges)
+    if name == "rmat-heavy":
+        g = tgen.rmat_graph(9, 8, seed=2)
+        u, v = g.edge_u.numpy(), g.col_idx.numpy()
+        edges = np.stack([u[u < v], v[u < v]], axis=1)
+        w = np.random.default_rng(3).integers(2**27, 2**28, len(edges))
+        return (jax_from_edge_list(g.n, edges, edge_weights=w),
+                from_edge_list(g.n, edges, edge_weights=w))
     make = {
         "rmat": lambda m: m.rmat_graph(9, 8, seed=2),
         "grid": lambda m: m.grid2d_graph(24, 24),
@@ -165,6 +176,21 @@ RATE_CASES = (
 @pytest.mark.parametrize("name,config", RATE_CASES,
                          ids=lambda c: c if isinstance(c, str) else "-".join(map(str, c)))
 def test_rating_plain_matches_pallas_kernel(name, config):
+    check_rating_against_pallas(name, config)
+
+
+@pytest.mark.parametrize("config", [RATE_CONFIGS[0], RATE_CONFIGS[3]],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rating_plain_matches_pallas_kernel_wrapping_weights(config):
+    """Rows whose weight sums wrap int32: the run rating is the cumsum
+    minus the cummax of the run bases, both wrapping, as in the JAX
+    package (the kernels must follow that, not the exact run sum)."""
+    _, tg = graph_pair("rmat-heavy")
+    assert int(tg.edge_w.max()) >= 2**27 and int(tg.padded().row_ptr.diff().max()) >= 16
+    check_rating_against_pallas("rmat-heavy", config)
+
+
+def check_rating_against_pallas(name, config):
     inst, external_only, respect_caps, tie_break = config
     rng = np.random.default_rng(1)
     jg, tg = graph_pair(name)
@@ -186,7 +212,7 @@ def test_rating_plain_matches_pallas_kernel(name, config):
         maxw[:8] = np.sort(lw[:8])[4] + rng.integers(0, 3, 8)
         maxw_j = jnp.asarray(maxw)
     jbv, tbv = jg.bucketed(), tg.bucketed()
-    for jb, tb in zip(jbv.buckets, tbv.buckets):
+    for jb, tb, real in zip(jbv.buckets, tbv.buckets, tbv.real_rows):
         tie = rng.integers(0, I32MAX, jb.cols.shape).astype(np.int32)
         ref = pallas_lp._rate_bucket(
             jnp.asarray(labels), pv.node_w, jnp.asarray(lw), maxw_j, jb, jnp.asarray(tie),
@@ -194,7 +220,7 @@ def test_rating_plain_matches_pallas_kernel(name, config):
             tie_break=tie_break, maxw_scalar=inst == "cluster",
         )
         out = lp_kernels.rate_bucket(
-            t(labels), tg.padded().node_w, t(lw), t(maxw), tb, t(tie),
+            t(labels), tg.padded().node_w, t(lw), t(maxw), tb, t(tie), real_rows=real,
             external_only=external_only, respect_caps=respect_caps,
             tie_break=tie_break,
         )
@@ -413,6 +439,101 @@ def test_isolated_and_two_hop_match_jax():
     assert_state_equal(js, ts, "two-hop")
 
 
+# -- what the rating wrappers decide on the host ----------------------------
+
+
+@pytest.mark.parametrize("name", ["rmat", "grid", "star", "hub"])
+def test_real_rows_match_the_layouts(name):
+    """``real_rows`` (dense and compressed layout) counts the rows before
+    the pad rows: the JAX builder's rows whose node is not the anchor, all
+    of them first."""
+    jg, tg = graph_pair(name)
+    anchor = jg.padded().anchor
+    tbv = tg.bucketed()
+    assert tbv.real_rows == tuple(int((np.asarray(b.nodes) != anchor).sum())
+                                  for b in jg.bucketed().buckets)
+    for b, real in zip(tbv.buckets, tbv.real_rows):
+        nodes = b.nodes.numpy()
+        assert (nodes[:real] != anchor).all() and (nodes[real:] == anchor).all()
+    assert DeviceCompressedView(compress(tg), "cpu").real_rows == tbv.real_rows
+
+
+@pytest.mark.parametrize("name", ["rmat", "star", "hub"])
+def test_fixed_rows_rate_to_their_own_label(name):
+    """The rows the kernels answer without loading a slot give (labels[node],
+    0, 0, False) in the plain versions for every flag set: the dense
+    layout's pad rows and the compressed layout's rows of degree 0 (pad
+    rows and isolated nodes)."""
+    jg, tg = graph_pair(name)
+    pv, bv = tg.padded(), tg.bucketed()
+    cv = DeviceCompressedView(compress(tg), "cpu")
+    rng = np.random.default_rng(5)
+    labels = t(rng.integers(0, pv.n_pad, pv.n_pad), torch.int32)
+    lw = t(rng.integers(0, 5, pv.n_pad), torch.int32)
+    fixed_rows = 0
+    for ext, caps, tie_break in [(False, True, "uniform"), (True, True, "lightest"),
+                                 (False, False, "uniform")]:
+        flags = dict(external_only=ext, respect_caps=caps, tie_break=tie_break)
+        args = (labels, pv.node_w, lw, torch.tensor(4, dtype=torch.int32))
+        for b, cb, real in zip(bv.buckets, cv.buckets, bv.real_rows):
+            tie = t(rng.integers(0, I32MAX, tuple(b.cols.shape)), torch.int32)
+            for out, rows in (
+                    (lp_kernels.rate_bucket(*args, b, tie, real_rows=real, **flags),
+                     torch.arange(real, b.nodes.shape[0])),
+                    (lp_kernels.rate_compressed_bucket(*args, cv.stream, cb, tie, **flags),
+                     torch.nonzero(cb.deg == 0)[:, 0])):
+                target, tconn, own_conn, has = out
+                assert_equal(target[rows], labels[b.nodes[rows]], f"target {flags}")
+                assert not tconn[rows].any() and not own_conn[rows].any()
+                assert not has[rows].any()
+                fixed_rows += len(rows)
+    assert fixed_rows > 0
+
+
+@pytest.mark.parametrize("name", ["rmat", "grid", "hub"])
+def test_sort_key_plan_fits_the_layout(name):
+    """The sort's label bits hold every label below L (and no fewer bits
+    would), and the warp path's 32-bit (label, slot) key is taken exactly
+    when it holds the label and the slot: for every bucket width of the
+    layout, at the clustering L = n_pad and the refinement L, and at the
+    edges of the key width."""
+    _, tg = graph_pair(name)
+    n_pad = tg.padded().n_pad
+    for w in [w for _, w in tg.bucketed().bucket_shapes] + [8, 256, 512, 4096]:
+        for L in (n_pad, tlp.num_labels_bucket(8), 1, 2, 2**6, 2**20, 2**23, 2**26,
+                  2**26 + 1, 2**27 + 1, 2**31 - 1):
+            bits, key64 = lp_kernels.sort_key_plan(L, w)
+            assert L - 1 < 2**bits and (bits == 1 or L - 1 >= 2**(bits - 1)), (L, bits)
+            log2w = w.bit_length() - 1
+            assert key64 == (w <= lp_kernels.WARP_MAX_WIDTH and bits + log2w > 32), (L, w)
+    assert lp_kernels.sort_key_plan(2**26, 64) == (26, False)
+    assert lp_kernels.sort_key_plan(2**26 + 1, 64) == (27, True)
+    assert lp_kernels.sort_key_plan(2**26 + 1, 128) == (27, False)
+
+
+def test_rate_wrapper_checks_real_rows():
+    """``real_rows`` must be given and lie in [0, R], on either device; on
+    the CPU the plain version rates every row, so the answer does not
+    depend on it."""
+    jg, tg = graph_pair("rmat")
+    pv, bv = tg.padded(), tg.bucketed()
+    b, real = bv.buckets[0], bv.real_rows[0]
+    tie = t(np.random.default_rng(2).integers(0, I32MAX, tuple(b.cols.shape)), torch.int32)
+    args = (t(np.arange(pv.n_pad), torch.int32), pv.node_w,
+            torch.zeros(pv.n_pad, dtype=torch.int32), torch.tensor(9, dtype=torch.int32))
+    flags = dict(external_only=False, respect_caps=True)
+    for bad in (-1, int(b.nodes.shape[0]) + 1):
+        with pytest.raises(ValueError):
+            lp_kernels.rate_bucket(*args, b, tie, real_rows=bad, **flags)
+    with pytest.raises(TypeError):
+        lp_kernels.rate_bucket(*args, b, tie, **flags)
+    R = int(b.nodes.shape[0])
+    ref = lp_kernels.rate_bucket(*args, b, tie, real_rows=real, **flags)
+    for rows in (0, R):
+        for r, o in zip(ref, lp_kernels.rate_bucket(*args, b, tie, real_rows=rows, **flags)):
+            assert_equal(r, o)
+
+
 def test_wrappers_route_by_device_and_count_only_kernel_launches():
     """CPU tensors take the plain version and leave the launch counters
     alone; a tensor on a device without a kernel raises."""
@@ -428,4 +549,5 @@ def test_wrappers_route_by_device_and_count_only_kernel_launches():
     meta = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         lp_kernels.rate_bucket(meta, meta, meta, meta, b, draws.ties[0],
-                               external_only=False, respect_caps=True)
+                               real_rows=tbv.real_rows[0], external_only=False,
+                               respect_caps=True)
