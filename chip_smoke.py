@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # RMAT scale 22, k = 16, cuda:0
     python3 chip_smoke.py --scale 16      # a quicker run
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
+    python3 chip_smoke.py --partition F   # also save terapart's final partition in F
+    python3 chip_smoke.py --kernels-only --partition F  # and time the commit on it
 
 ``rmat_graph(scale, 16, seed=1)`` is generated once.  Phases, each of
 which fails the run when it fails:
@@ -16,14 +18,21 @@ which fails the run when it fails:
    ``DeviceCompressedView``, for its own stream, the same structure
    unweighted and with numpy-random weights, and timed; then the commit
    kernel at the view's level-0 clustering shape (the isolated nodes stay
-   in, so ``L = n_pad`` picks the auction), compared and timed.  All
-   comparisons on the card, exact (all values are integers);
+   in, so ``L = n_pad``; a synthetic instance, and the path's first round
+   on its own data) and at the same level's LP-refinement shape
+   (``L = 64``, a synthetic instance), each run twice, compared with the
+   plain version and timed, with the device time of each of its launches
+   (``torch.profiler``).  All comparisons on the card, exact (all values
+   are integers);
 4. terapart path: ``KaMinPar("terapart").compute_partition(k)`` on that
    graph, with the launch counters set to 0 just before and read just
    after and the host decompress refused; the partition must be feasible
    and every kernel must have run, the compressed one included.  Peak
    device memory is read per clustering, contraction and re-decode call
-   and between them;
+   and between them, and the commit calls are counted by (n, L), with the
+   most movers one target had in them; then the refinement commit on the
+   path's own data (its final partition, the moves rated on its level-0
+   view) is compared and timed;
 5. ``device_decode`` "off" against "finest" on ``rmat_graph(scale - 4)``
    into ``OFF_FINEST_K`` blocks: equal partitions;
 6. kernels of the default path: on the degree-bucketed layout of
@@ -61,8 +70,10 @@ code 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,7 +147,9 @@ class PeakTracker:
     compressed stream or dense) and the finest level's re-decode.  Each
     such call is bracketed by a synchronize and a reset of the peak
     statistic, so the run's peak is the largest of the per-segment peaks;
-    ``outside`` is the largest peak between the calls."""
+    ``outside`` is the largest peak between the calls.  It also counts the
+    commit kernel's calls by (n, L) in ``commit_calls``, with the most
+    movers one target had in them (one read-back per call)."""
 
     TARGETS = (
         ("kaminpar_tpu_torch.coarsening.lp_clusterer", "LPClustering", "compute_clustering"),
@@ -158,9 +171,36 @@ class PeakTracker:
             fn = getattr(owner, name)
             self._saved.append((owner, name, fn))
             setattr(owner, name, self._wrap(name, fn))
+        self._count_commits()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         return self
+
+    def _count_commits(self):
+        from kaminpar_tpu_torch.ops import lp_kernels
+
+        self.commit_calls = collections.Counter()
+        self.commit_hubs = collections.Counter()  # the most movers on one target
+        commit = lp_kernels.commit_moves
+        self._saved.append((lp_kernels, "commit_moves", commit))
+
+        def counted(*args, **kwargs):
+            L = kwargs["num_labels"] if "num_labels" in kwargs else args[6]
+            key = (int(args[1].shape[0]), int(L))
+            self.commit_calls[key] += 1
+            self.commit_hubs[key] = max(self.commit_hubs[key], commit_movers(args, kwargs)[1])
+            return commit(*args, **kwargs)
+
+        lp_kernels.commit_moves = counted
+
+    def commit_log(self, path: str) -> list:
+        """Logs the commit calls by (n, L), with the most movers that one
+        target had in any of them, on a line of their own; returns them."""
+        calls = [dict(n=n, L=L, calls=c, largest_target=self.commit_hubs[(n, L)])
+                 for (n, L), c in sorted(self.commit_calls.items())]
+        log(json.dumps(dict(phase="commit_calls", path=path, total=sum(
+            self.commit_calls.values()), calls=calls)))
+        return calls
 
     def _wrap(self, name, fn):
         import torch
@@ -275,7 +315,17 @@ def bitonic_ops(R: int, w: int) -> int:
 
 
 def commit_bytes(n: int, L: int, maxw_len: int, act: bool, coin: bool) -> int:
+    """The commit's inputs read once (labels, node_w, target, tconn,
+    own_conn, prio; the flags it uses; label weights and caps) and its
+    outputs written once (new labels, new label weights, the count)."""
     return 4 * (6 * n + L + maxw_len) + n * (int(act) + int(coin)) + 4 * (n + L + 1)
+
+
+def commit_ops(n: int, movers: int) -> int:
+    """Least operations of one commit: per node the movers test (compare,
+    select, compare, mask) and the accept step (compare, select, weight
+    add); per mover its demand add and threshold compare."""
+    return 7 * n + 2 * movers
 
 
 def bound(nbytes: int, ops: int):
@@ -419,7 +469,8 @@ def phase_kernels(work, device, k: int):
     log(json.dumps(rate))
 
     # -- commit kernel: the clustering instantiation (n = L = n_pad, scalar
-    #    cap) and the refinement one (L = 64, cap table), radix and bitwise
+    #    cap) and the refinement one (L = 64, cap table), against both
+    #    plain auctions
     n = n_pad
     node_w = pv.node_w
     cluster_call = clustering_commit_call(node_w, pv.n, pv.anchor, randint, gen)
@@ -433,9 +484,9 @@ def phase_kernels(work, device, k: int):
                    node_w, caps, Lr, prio, None, act)
     commit_err = 0
     for inst, call in (("cluster", cluster_call), ("refine", refine_call)):
-        for radix in (True, False):
-            commit_err = max(commit_err, check_commit(inst, call, radix))
-    commit = time_commit(cluster_call, commit_err, "the finest level of the default path")
+        commit_err = max(commit_err, check_commit(inst, call, CLUSTER_OPTS, (True, False)))
+    commit = time_commit(cluster_call, commit_err, CLUSTER_OPTS,
+                         "the finest level of the default path, clustering instantiation")
     return rate, commit
 
 
@@ -459,44 +510,173 @@ def clustering_commit_call(node_w, n: int, anchor: int, randint, gen):
     return (lp.LPState(ids, lw, None), target, tconn, own, node_w, maxw, n_pad, prio, None, act)
 
 
-def check_commit(inst: str, call, radix: bool) -> int:
-    """The commit kernel against its plain version on ``call``; raises on
-    any difference."""
+def path_clustering_commit_call(ctx, cv, k: int, eps: float):
+    """Inputs and flags of the first commit of the terapart path's level-0
+    clustering, on the path's own data: labels are node ids (pad nodes on
+    the anchor), the cap and the active share as the coarsener and
+    ``LPClustering`` set them for this level (a graph with edge weights
+    takes the weighted share), a round's draws and the targets rated by
+    the decode-fused kernel on the compressed view ``cv``."""
+    import torch
+
+    from kaminpar_tpu_torch.coarsening.max_cluster_weights import compute_max_cluster_weight
+    from kaminpar_tpu_torch.ops import lp
+
+    c = ctx.coarsening
+    device, n, n_pad = cv.node_w_pad.device, cv.n, cv.n_pad
+    weighted = (bool(c.lp.weighted_mode) if c.lp.weighted_mode is not None
+                else not cv.cg.has_uniform_edge_weights())
+    active_prob = min(c.lp.active_prob, c.lp.weighted_active_prob) if weighted else (
+        c.lp.active_prob)
+    max_cw = compute_max_cluster_weight(c, n, cv.total_node_weight, k, eps)
+    if c.max_shrink_factor > 0:
+        max_cw = min(max_cw, max(int(c.max_shrink_factor * cv.total_node_weight / max(n, 1)), 1))
+    labels = torch.cat([torch.arange(n, dtype=torch.int32, device=device),
+                        torch.full((n_pad - n,), cv.anchor, dtype=torch.int32, device=device)])
+    state = lp.init_state(labels, cv.node_w_pad, n_pad)
+    maxw = torch.tensor(max_cw, dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(10)
+    draws = lp.draw_lp_round(gen, cv, n_pad, active_prob=active_prob)
+    target, tconn, own, _ = lp.best_moves(
+        labels, cv, cv.node_w_pad, state.label_weights, maxw, draws.ties, draws.heavy_tie,
+        external_only=False, respect_caps=True, tie_break=c.lp.tie_breaking.value)
+    return ((state, target, tconn, own, cv.node_w_pad, maxw, n_pad, draws.prio, None, draws.act),
+            dict(active_prob=active_prob))
+
+
+# The commit's flags: the clustering round's (half the nodes active) and
+# LP refinement's (the refinement context: active_prob 1.0, no tie moves).
+CLUSTER_OPTS = dict(active_prob=0.5)
+REFINE_OPTS = dict(active_prob=1.0)
+
+
+def refinement_commit_call(node_w, n: int, k: int, randint, gen):
+    """Inputs of one LP-refinement commit over ``n_pad = len(node_w)``
+    nodes, synthetic: random blocks, ``L = num_labels_bucket(k)``, 5% of the
+    real nodes rating another block higher, priorities as the round draws
+    them (ties among them at this n), and caps that leave the even blocks
+    contested (each fits half its movers' weight) and the odd ones not."""
+    import torch
+
+    from kaminpar_tpu_torch.ops import lp
+
+    n_pad, device = int(node_w.shape[0]), node_w.device
+    i32 = torch.int32
+    L = lp.num_labels_bucket(k)
+    blocks = torch.cat([randint(0, k, (n,)), torch.zeros(n_pad - n, dtype=i32, device=device)])
+    lw = torch.zeros(L, dtype=i32, device=device).index_add_(0, blocks, node_w)
+    target = torch.remainder(blocks + randint(1, k, (n_pad,)), k)
+    move = (torch.rand(n_pad, generator=gen, device=device) < 0.05) & (
+        torch.arange(n_pad, device=device) < n)
+    tconn = torch.where(move, randint(1, 8, (n_pad,)), torch.zeros_like(blocks))
+    prio = randint(0, (1 << 30) - 1, (n_pad,))
+    demand = torch.zeros(L, dtype=i32, device=device).index_add_(
+        0, target[move], node_w[move])
+    caps = torch.zeros(L, dtype=i32, device=device)
+    even = torch.arange(k, device=device) % 2 == 0
+    caps[:k] = lw[:k] + torch.where(even, demand[:k] // 2, demand[:k] + 1)
+    return (lp.LPState(blocks, lw, None), target, tconn, torch.zeros_like(blocks), node_w,
+            caps, L, prio, None, None)
+
+
+def check_commit(inst: str, call, opts: dict, auctions=None) -> int:
+    """The commit kernel, run twice, against its plain version with each
+    auction in ``auctions`` (radix or not; default: the one
+    ``lp.use_radix_auction`` picks for L) on ``call``; raises on any
+    difference, also between the two kernel runs (the kernel's mover list
+    is appended in another order each run)."""
     from kaminpar_tpu_torch.ops import lp, lp_kernels
 
-    opts = dict(active_prob=0.5, radix=radix)
-    out = lp_kernels.commit_moves(*call, **opts)
-    err = max_abs_err(lp._commit_moves(*call, **opts), out)
-    if err:
-        raise AssertionError(f"commit kernel != plain: {inst} radix={radix}")
-    log(f"  commit {inst} n={int(call[4].shape[0])} L={call[6]} radix={radix}: equal "
-        f"(moved {int(out.num_moved)})")
+    L = call[6]
+    auctions = auctions or (lp.use_radix_auction(L),)
+    outs = [lp_kernels.commit_moves(*call, **opts) for _ in range(2)]
+    if max_abs_err(outs[0], outs[1]):
+        raise AssertionError(f"commit kernel: two runs differ: {inst}")
+    err = 0
+    for radix in auctions:
+        err = max(err, max_abs_err(lp._commit_moves(*call, **opts, radix=radix), outs[0]))
+        if err:
+            raise AssertionError(f"commit kernel != plain: {inst} radix={radix}")
+    log(f"  commit {inst} n={int(call[4].shape[0])} L={L} radix={list(auctions)}: equal, "
+        f"two runs equal (moved {int(outs[0].num_moved)})")
     return err
 
 
-def time_commit(call, err: int, where: str) -> dict:
-    """The commit kernel and its plain version timed on a clustering
-    instantiation ``call``, with the auction the path picks for its L."""
+def time_commit(call, err: int, opts: dict, what: str) -> dict:
+    """The commit kernel (card time and host-paced) and its plain version,
+    with the auction ``lp.use_radix_auction`` picks for L, timed on
+    ``call``; the bound counts this call's movers."""
+    import torch
+
     from kaminpar_tpu_torch.ops import lp, lp_kernels
 
     n, L = int(call[4].shape[0]), call[6]
-    opts = dict(active_prob=0.5, radix=lp.use_radix_auction(L))
-    # Operations: the movers test and, per auction level, one digit test
-    # per node; a few per node in all, far below the byte time.
-    levels = 6 if opts["radix"] else 30
-    bound_ms, bound_by = bound(commit_bytes(n, L, int(call[5].numel()), act=True, coin=False),
-                               n * (4 + 2 * levels))
+    act = opts["active_prob"] < 1.0
+    movers, largest = commit_movers(call, opts)
+    bound_ms, bound_by = bound(
+        commit_bytes(n, L, int(call[5].numel()), act=act, coin=False), commit_ops(n, movers))
+    radix = lp.use_radix_auction(L)
     meas = dict(
-        kernel="lp_commit", what=f"one commit at {where}, clustering instantiation "
-        f"(n = L = {n}, {'radix' if opts['radix'] else 'bitwise'} auction)",
+        kernel="lp_commit", what=f"one commit at {what} (n = {n}, L = {L}; the plain "
+        f"version's auction: {'radix' if radix else 'bitwise'})", n=n, L=L, movers=movers,
+        largest_target=largest,
         kernel_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20),
         host_paced_ms=cuda_time_ms(lambda: lp_kernels.commit_moves(*call, **opts), iters=20,
                                    sleep_ahead=False),
-        plain_ms=cuda_time_ms(lambda: lp._commit_moves(*call, **opts), iters=3, warmup=1),
+        plain_ms=cuda_time_ms(lambda: lp._commit_moves(*call, **opts, radix=radix), iters=3,
+                              warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err,
+        launch_ms=launch_ms(lambda: lp_kernels.commit_moves(*call, **opts)),
     )
     log(json.dumps(meas))
     return meas
+
+
+def commit_movers(call, opts: dict):
+    """(movers, the most movers on one target) of a commit call: its
+    positional arguments as ``lp_kernels.commit_moves`` takes them and its
+    keyword flags, by the rule the kernel applies."""
+    import torch
+
+    state, target, tconn, own = call[:4]
+    better = tconn > own
+    if opts.get("allow_tie_moves", False):
+        better |= (tconn == own) & call[8]
+    moved = torch.where(better, target, state.labels) != state.labels
+    if opts.get("active") is not None:
+        moved &= opts["active"]
+    if opts.get("active_prob", 1.0) < 1.0:
+        moved &= call[9]
+    t = target[moved]
+    return int(t.numel()), int(torch.bincount(t).max()) if t.numel() else 0
+
+
+def launch_ms(fn, calls: int = 10) -> dict:
+    """Device milliseconds per call of ``fn`` in each of its launches
+    (kernels and memsets, by name), traced with ``torch.profiler``; empty
+    when three traces recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    rows = {}
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            if us > 0 and ("kernel" in ev.key or "Memset" in ev.key):
+                name = re.search(r"\w+_kernel(<\w+>)?|Memset", ev.key)
+                name = name.group(0) if name else ev.key
+                rows[name] = rows.get(name, 0.0) + us / calls / 1e3
+        if rows:
+            break
+    return rows
 
 
 def compressed_buckets(cg, cv) -> list:
@@ -527,12 +707,14 @@ def compressed_buckets(cg, cv) -> list:
     return out
 
 
-def phase_compressed_kernel(cg, device, k: int):
+def phase_compressed_kernel(cg, ctx, device, k: int, eps: float):
     """The decode-fused rating kernel against its plain version, both on the
     card, on every bucket of the compressed view of ``cg`` (the view the
     terapart path builds), for its own stream, the same structure
     unweighted and with numpy-random weights; then the commit kernel at the
-    view's level-0 clustering shape.  Returns both measurements."""
+    view's level-0 clustering shape (synthetic, and the path's first round
+    under the solver context ``ctx``) and its refinement shape (synthetic).
+    Returns both measurements."""
     import dataclasses
 
     import numpy as np
@@ -607,17 +789,62 @@ def phase_compressed_kernel(cg, device, k: int):
                 lambda i: lp_kernels.rate_compressed_bucket(
                     *timed["args"], cv.stream, cv.buckets[i], timed["ties"][i],
                     **timed["flags"]), buckets)
-            # The commit at the level-0 clustering of the terapart path: the
-            # isolated nodes stay in, so L = n_pad picks the auction there.
+            # The commit at the level-0 clustering of the terapart path (the
+            # isolated nodes stay in, so L = n_pad) and an LP-refinement
+            # commit at the same level (L = 64).
             call = clustering_commit_call(cv.node_w_pad, cv.n, cv.anchor, randint, gen)
-            err = check_commit("cluster, terapart level 0", call, lp.use_radix_auction(cv.n_pad))
-            commit = time_commit(call, err, "terapart level 0")
+            err = check_commit("cluster, terapart level 0", call, CLUSTER_OPTS)
+            commit = time_commit(call, err, CLUSTER_OPTS,
+                                 "terapart level 0, clustering instantiation")
+            call = refinement_commit_call(cv.node_w_pad, cv.n, k, randint, gen)
+            err = check_commit("refine (synthetic), terapart level 0", call, REFINE_OPTS,
+                               (True, False))
+            commit["instances"] = [commit.copy(), time_commit(
+                call, err, REFINE_OPTS, "terapart level 0, refinement instantiation, "
+                "synthetic: 5% of the nodes move, even blocks contested")]
+            call, opts = path_clustering_commit_call(ctx, cv, k, eps)
+            err = check_commit("cluster (path data), terapart level 0", call, opts)
+            commit["instances"].append(time_commit(
+                call, err, opts, "terapart level 0, clustering instantiation, the path's "
+                "first round: node ids as labels, its cap and active share, moves rated on the view"))
             del call
         del cv, timed
         torch.cuda.empty_cache()
     meas["max_abs_err"] = err_max
     log(json.dumps(meas))
     return meas, commit
+
+
+def phase_refinement_commit(cv, partition, max_block_weights, device, k: int) -> dict:
+    """The commit of an LP-refinement round at the terapart path's finest
+    level, on the path's own data: the run's final ``partition`` as labels
+    and caps as ``LPRefiner.refine`` builds them, the targets rated by the
+    decode-fused kernel on the level's compressed view ``cv`` with a
+    round's draws (the refinement context's flags: active_prob 1.0, no tie
+    moves); checked against both plain auctions and timed."""
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.ops import lp
+
+    if tuple(partition.shape) != (cv.n,):
+        raise AssertionError("the final partition does not match the compressed view")
+    L = lp.num_labels_bucket(k)
+    labels = torch.zeros(cv.n_pad, dtype=torch.int32, device=device)
+    labels[: cv.n] = torch.as_tensor(partition).to(device=device, dtype=torch.int32)
+    state = lp.init_state(labels, cv.node_w_pad, L)
+    caps = torch.zeros(L, dtype=torch.int32, device=device)
+    caps[:k] = torch.as_tensor(np.asarray(max_block_weights), dtype=torch.int32)
+    gen = torch.Generator(device=device).manual_seed(9)
+    draws = lp.draw_lp_round(gen, cv, cv.n_pad)
+    target, tconn, own, _ = lp.best_moves(labels, cv, cv.node_w_pad, state.label_weights,
+                                          caps, draws.ties, draws.heavy_tie,
+                                          external_only=False, respect_caps=True)
+    call = (state, target, tconn, own, cv.node_w_pad, caps, L, draws.prio, None, None)
+    err = check_commit("refine (path data), terapart level 0", call, REFINE_OPTS,
+                       (True, False))
+    return time_commit(call, err, REFINE_OPTS, "terapart level 0, refinement "
+                       "instantiation, the path's final partition and rated moves")
 
 
 def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
@@ -658,7 +885,8 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
                 dense_resident_bytes=cv.dense_resident_bytes(),
                 compressed_host_bytes=solver.compressed_graph.memory_bytes(),
                 levels=solver.last_partitioner.num_levels,
-                phase_s=solver.last_partitioner.phase_seconds, launches=launches)
+                phase_s=solver.last_partitioner.phase_seconds, launches=launches,
+                commit_calls=mem.commit_log("terapart"))
     log(json.dumps(info))
     if not feasible:
         raise AssertionError("terapart partition is infeasible")
@@ -769,7 +997,8 @@ def phase_main_path(graph, k: int, eps: float):
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
                 wall_s=wall, peak_bytes=mem.peak, peak_outside_bytes=mem.outside,
                 peak_calls=mem.calls, levels=part_info.num_levels,
-                phase_s=part_info.phase_seconds, launches=launches)
+                phase_s=part_info.phase_seconds, launches=launches,
+                commit_calls=mem.commit_log("default"))
     log(json.dumps(info))
     if not feasible:
         raise AssertionError("main path partition is infeasible")
@@ -811,14 +1040,20 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, check and time the kernels (phases 1-3 and the kernel "
                     "part of 6) and stop: no path runs, no result line")
+    ap.add_argument("--partition", metavar="FILE",
+                    help="the whole run saves the terapart path's final partition and "
+                    "block caps there (.npz); --kernels-only times the refinement commit "
+                    "on the partition saved there at the same scale")
     args = ap.parse_args()
 
     name, count, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
     import torch
 
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
     from kaminpar_tpu_torch.utils import Logger, OutputLevel
 
     Logger.level = OutputLevel.EXPERIMENT
@@ -837,21 +1072,35 @@ def main() -> int:
     t0 = time.perf_counter()
     terapart.set_graph(graph)  # compresses on the host
     compress_s = time.perf_counter() - t0
-    rate_c, commit = phase_compressed_kernel(terapart.compressed_graph, device, K)
+    rate_c, commit = phase_compressed_kernel(terapart.compressed_graph, terapart.ctx, device,
+                                             K, EPSILON)
     if args.kernels_only:
+        if args.partition:
+            saved = np.load(args.partition)
+            cv = DeviceCompressedView(terapart.compressed_graph, device)
+            phase_refinement_commit(cv, saved["partition"], saved["caps"], device, K)
+            del cv
         del terapart, graph
         torch.cuda.empty_cache()
         phase_kernels(finest_graph(rmat(args.scale - 2), K, device), device, K)
         log(smi)
         return 0
     tinfo = phase_terapart_path(terapart, graph, K, EPSILON, compress_s)
+    p = terapart.last_partition
+    if args.partition:
+        np.savez_compressed(args.partition, partition=p.partition.cpu().numpy().astype(np.int32),
+                            caps=np.asarray(p.max_block_weights))
+    commit["instances"].append(phase_refinement_commit(
+        terapart.last_partitioner.compressed_view, p.partition, p.max_block_weights, device, K))
+    del p
     del terapart, graph
     torch.cuda.empty_cache()
     phase_off_vs_finest(rmat(args.scale - 4), args.scale - 4, OFF_FINEST_K, EPSILON)
 
     graph = rmat(args.scale - 2)
     work = finest_graph(graph, K, device)
-    rate, _ = phase_kernels(work, device, K)
+    rate, commit_default = phase_kernels(work, device, K)
+    commit["instances"].insert(1, commit_default)
     del work
     torch.cuda.empty_cache()
     phase_round_reference(device)
@@ -870,6 +1119,12 @@ def main() -> int:
             plain_ms=meas["plain_ms"], bound_ms=meas["bound_ms"],
             bound_by=meas["bound_by"], library_ms=meas["library_ms"],
         ))
+        if "instances" in meas:  # the commit: every instance timed
+            kernels[-1]["instances"] = [
+                {key: inst[key] for key in ("what", "n", "L", "movers", "largest_target",
+                                            "kernel_ms", "host_paced_ms", "plain_ms",
+                                            "bound_ms")}
+                for inst in meas["instances"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

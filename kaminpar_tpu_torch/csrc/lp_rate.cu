@@ -80,9 +80,10 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "warp_sort.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpBlock = 256;  // threads per block on the warp path
 // Widest rows of the warp path.  The wrapper reads it through
 // kp_rate_warp_max_width(), since it picks 64-bit keys for that path.
@@ -145,24 +146,7 @@ __device__ __forceinline__ Cand segment_best(Cand c, int lightest) {
   return c;
 }
 
-template <int SW>
-__device__ __forceinline__ unsigned segment_sum(unsigned v) {
-#pragma unroll
-  for (int d = SW >> 1; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  return v;
-}
-
-// Inclusive scans within aligned segments of SW lanes.
-template <int SW>
-__device__ __forceinline__ unsigned segment_scan_sum(unsigned v, int sl) {
-#pragma unroll
-  for (int d = 1; d < SW; d <<= 1) {
-    unsigned o = __shfl_up_sync(kFull, v, d, SW);
-    if (sl >= d) v += o;
-  }
-  return v;
-}
-
+// Inclusive max scan within aligned segments of SW lanes.
 template <int SW>
 __device__ __forceinline__ int segment_scan_max(int v, int sl) {
 #pragma unroll
@@ -338,46 +322,6 @@ struct CompressedRows {
 
 // ---------------------------------------------------------------------------
 // Warp path: rows of width W <= kWarpMaxWidth.
-
-template <class Key, int W, int ITEMS>
-__device__ __forceinline__ void warp_bitonic(Key (&key)[ITEMS], int (&val)[ITEMS], int sl) {
-#pragma unroll
-  for (int k = 2; k <= W; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j >= 32) {
-        // Partner is item i ^ (j / 32) of the same lane.
-#pragma unroll
-        for (int i = 0; i < ITEMS; ++i) {
-          const int p = i ^ (j >> 5);
-          if (p > i) {
-            const bool up = ((i * 32 + sl) & k) == 0;
-            if ((key[i] > key[p]) == up) {
-              Key tk = key[i];
-              key[i] = key[p];
-              key[p] = tk;
-              int tv = val[i];
-              val[i] = val[p];
-              val[p] = tv;
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < ITEMS; ++i) {
-          const int e = i * 32 + sl;
-          Key o = __shfl_xor_sync(kFull, key[i], j);
-          int ov = __shfl_xor_sync(kFull, val[i], j);
-          const bool lower = (e & j) == 0, up = (e & k) == 0;
-          if (lower == up ? o < key[i] : o > key[i]) {
-            key[i] = o;
-            val[i] = ov;
-          }
-        }
-      }
-    }
-  }
-}
 
 template <class Rows, class Key, int W>
 __global__ void __launch_bounds__(kWarpBlock) rate_warp_kernel(Rows rows, Args a) {

@@ -8,7 +8,11 @@ Three kernels replace the TPU kernels of ``kaminpar_tpu/ops/pallas_lp.py``:
   ``_rate_compressed_bucket``: the same rating, with each row decoded from
   the compressed word stream inside the kernel;
 - ``csrc/lp_commit.cu`` (``kp_commit_moves``) replaces ``commit_moves``:
-  movers, capacity auction and label/weight update of one round.
+  movers, capacity auction and label/weight update of one round, in a
+  fixed number of launches (one regime for L <= 256 labels, another above).
+
+``csrc/warp_sort.cuh`` holds the warp-level sort and scans that both
+sources use.
 
 Dispatch is by device: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version (``bucketed_gains._bucket_moves``,
@@ -44,6 +48,7 @@ from . import bucketed_gains, lp
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("lp_rate.cu", "lp_commit.cu")
+HEADERS = ("warp_sort.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -76,7 +81,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -133,9 +138,10 @@ def _library():
                                                       P, P, P, P]
             lib.kp_rate_compressed_bucket.restype = I
             lib.kp_commit_moves.argtypes = [I, I, P, P, P, P, I, P, P, P, P, P, P, P,
-                                            I, I, I, I, P, P, P, P, P, P, P, P, P, P, P,
-                                            P]
+                                            I, I, I, P, P, P, P, P]
             lib.kp_commit_moves.restype = I
+            lib.kp_commit_scratch_bytes.argtypes = [I, I]
+            lib.kp_commit_scratch_bytes.restype = ctypes.c_longlong
             lib.kp_rate_warp_max_width.argtypes = []
             lib.kp_rate_warp_max_width.restype = I
             if lib.kp_rate_warp_max_width() != WARP_MAX_WIDTH:
@@ -332,8 +338,15 @@ def commit_moves(state: "lp.LPState", target, tconn, own_conn, node_w,
                  max_label_weights, num_labels: int, prio, coin=None, act=None, *,
                  active_prob: float = 1.0, allow_tie_moves: bool = False,
                  active=None, radix: Optional[bool] = None) -> "lp.LPState":
-    """Commit one LP round (kernel #3 on CUDA tensors).  ``radix`` None
-    picks the auction by ``lp.use_radix_auction``."""
+    """Commit one LP round: kernel #3 on CUDA tensors, ``lp._commit_moves``
+    on CPU tensors.  ``radix`` picks the plain version's auction (None: by
+    ``lp.use_radix_auction``); the kernel has one auction for every L and
+    gives the same result as both.
+
+    Domain (the LP round's draws keep to it, the kernel relies on it):
+    labels and targets lie in ``[0, num_labels)``, priorities in
+    ``[0, 2^30 - 1)``, node weights are >= 0 and their total is below
+    2^31, so that no int32 sum of weights wraps."""
     labels, label_weights, _ = state
     if not _route(labels, label_weights, target, tconn, own_conn, node_w, prio):
         return lp._commit_moves(
@@ -341,8 +354,6 @@ def commit_moves(state: "lp.LPState", target, tconn, own_conn, node_w,
             num_labels, prio, coin, act, active_prob=active_prob,
             allow_tie_moves=allow_tie_moves, active=active, radix=radix,
         )
-    if radix is None:
-        radix = lp.use_radix_auction(num_labels)
     dev = labels.device
     i32, b8 = torch.int32, torch.bool
     n = int(labels.shape[0])
@@ -362,26 +373,19 @@ def commit_moves(state: "lp.LPState", target, tconn, own_conn, node_w,
             if t is None:
                 raise ValueError(f"{name} is required")
             _check(name, t, b8, (n,), dev)
-    t_idx = torch.empty(n, dtype=i32, device=dev)
-    w_mover = torch.empty(n, dtype=i32, device=dev)
-    moved = torch.empty(n, dtype=torch.uint8, device=dev)
-    is_target = torch.empty(L, dtype=torch.uint8, device=dev)
-    slack = torch.empty(L, dtype=i32, device=dev)
-    thr = torch.empty(L, dtype=i32, device=dev)
-    admitted = torch.empty(L, dtype=i32, device=dev)
-    hist = torch.empty(L * (lp._RADIX if radix else 1), dtype=i32, device=dev)
+    lib = _library()
+    scratch = torch.empty(int(lib.kp_commit_scratch_bytes(n, L)), dtype=torch.uint8,
+                          device=dev)
     new_labels = torch.empty(n, dtype=i32, device=dev)
     new_weights = torch.empty(L, dtype=i32, device=dev)
     moved_count = torch.empty((), dtype=i32, device=dev)
-    err = _library().kp_commit_moves(
+    err = lib.kp_commit_moves(
         n, L, _ptr(labels), _ptr(node_w), _ptr(label_weights), _ptr(maxw),
         int(maxw_scalar), _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(prio),
         _ptr(coin if allow_tie_moves else None), _ptr(act if use_act else None),
         _ptr(active), int(allow_tie_moves), int(use_act), int(active is not None),
-        int(radix), _ptr(t_idx), _ptr(w_mover), _ptr(moved), _ptr(is_target),
-        _ptr(slack),
-        _ptr(thr), _ptr(admitted), _ptr(hist), _ptr(new_labels),
-        _ptr(new_weights), _ptr(moved_count), _stream_ptr(dev),
+        _ptr(scratch), _ptr(new_labels), _ptr(new_weights), _ptr(moved_count),
+        _stream_ptr(dev),
     )
     _raise_on(err, "kp_commit_moves")
     LAUNCHES["lp_commit"] += 1

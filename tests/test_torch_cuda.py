@@ -290,6 +290,11 @@ def test_commit_kernel_matches_plain(cuda, radix, scalar_cap):
     maxw = (torch.tensor(9, dtype=torch.int32) if scalar_cap
             else torch.full((L,), int(lw.max()) + 40, dtype=torch.int32))
     prio = torch.randint(0, (1 << 30) - 1, (n,), generator=gen, dtype=torch.int32)
+    # Half the priorities from 32 values: ties within a target, which the
+    # kernel must admit or refuse together.
+    tied = torch.rand(n, generator=gen) < 0.5
+    prio = torch.where(tied, torch.randint(0, 32, (n,), generator=gen, dtype=torch.int32) << 25,
+                       prio)
     coin = torch.rand(n, generator=gen) < 0.5
     act = torch.rand(n, generator=gen) < 0.8
     color = torch.rand(n, generator=gen) < 0.7
@@ -304,6 +309,213 @@ def test_commit_kernel_matches_plain(cuda, radix, scalar_cap):
         torch.cuda.synchronize()
         assert_equal(ref, out, f"radix={radix} scalar_cap={scalar_cap}")
         assert int(out.num_moved) > 0
+
+
+# -- commit kernel #3: edge cases and regimes --------------------------------
+# The cases are numpy-built so that tests/test_torch_lp_kernels.py holds the
+# same ones against its oracle and the Pallas commit body.
+
+COMMIT_CASES = ("ties", "zero-weight", "negative-slack", "exact-slack", "hub",
+                "uncontested", "heavy")
+# Clustering exercises every mask (tie coins, the active subset, a colour
+# class); refinement has the refinement context's flags (active_prob 1.0,
+# no tie moves).
+COMMIT_FLAGS = {"cluster": dict(active_prob=0.8, allow_tie_moves=True, has_active=True),
+                "refine": dict(active_prob=1.0, allow_tie_moves=False, has_active=False)}
+
+
+def commit_movers(c):
+    """Mover mask and desired labels of a commit case, as the function
+    defines them."""
+    f = c["flags"]
+    better = c["tconn"] > c["own"]
+    if f["allow_tie_moves"]:
+        better |= (c["tconn"] == c["own"]) & c["coin"]
+    desired = np.where(better, c["target"], c["labels"])
+    moved = desired != c["labels"]
+    if f["has_active"]:
+        moved &= c["color"]
+    if f["active_prob"] < 1.0:
+        moved &= c["act"]
+    return moved, desired
+
+
+def demand_at(c, moved, desired):
+    """Per mover (int64): D_t(p_i), the weight of the movers with its
+    target and a priority <= its own."""
+    idx = np.flatnonzero(moved)
+    key = desired[idx].astype(np.int64) << 31 | c["prio"][idx].astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    ks, ws = key[order], c["node_w"][idx][order].astype(np.int64)
+    cs = np.cumsum(ws)
+    tgt = ks >> 31
+    first = np.searchsorted(tgt, tgt, side="left")
+    before = np.where(first > 0, cs[first - 1], 0)
+    last = np.searchsorted(ks, ks, side="right") - 1
+    d = np.empty(idx.size, dtype=np.int64)
+    d[order] = cs[last] - before
+    return idx, d
+
+
+def commit_case(case, inst, n=1024):
+    """numpy inputs of one commit: the clustering instantiation (labels =
+    node ids, L = n, a scalar cap) or the refinement one (16 blocks, L = 64,
+    a cap table), with contested and uncontested targets; ``case`` bends
+    them to one edge of the auction."""
+    rng = np.random.default_rng(17 + 2 * COMMIT_CASES.index(case) + (inst == "refine"))
+    k = 16
+    if inst == "cluster":
+        L, labels, hi = n, np.arange(n, dtype=np.int32), 40
+    else:
+        L, labels, hi = 64, rng.integers(0, k, n).astype(np.int32), k
+    node_w = rng.integers(1, 4, n).astype(np.int64)
+    if case == "zero-weight":
+        node_w[rng.random(n) < 0.3] = 0
+    if case == "heavy":  # total weight just under 2^31
+        node_w = rng.integers(1 << 20, 1 << 21, n).astype(np.int64)
+        node_w = node_w * (2**31 - 1 - n) // int(node_w.sum())
+    target = rng.integers(0, hi, n).astype(np.int32)
+    if case == "hub":
+        target[:] = 3
+    prio = rng.integers(0, (1 << 30) - 1, n).astype(np.int32)
+    if case == "ties":
+        prio = (rng.integers(0, 6, n) << 27).astype(np.int32)
+    c = dict(labels=labels, node_w=node_w.astype(np.int32), target=target,
+             tconn=rng.integers(0, 20, n).astype(np.int32),
+             own=rng.integers(0, 20, n).astype(np.int32), prio=prio,
+             coin=rng.random(n) < 0.5, act=rng.random(n) < 0.8, color=rng.random(n) < 0.7,
+             L=L, flags=COMMIT_FLAGS[inst])
+    lw = np.bincount(labels, weights=node_w, minlength=L).astype(np.int64)
+    moved, desired = commit_movers(c)
+    dem = np.bincount(desired[moved], weights=node_w[moved], minlength=L).astype(np.int64)
+    idx, d = demand_at(c, moved, desired)
+    # D_t at the median priority of each target's movers: a cap there
+    # leaves the target exactly full at one mover.
+    mid = np.zeros(L, dtype=np.int64)
+    for t in np.unique(desired[idx]):
+        dt = np.sort(d[desired[idx] == t])
+        mid[t] = dt[len(dt) // 2]
+    if inst == "cluster":
+        cap = int(np.median((lw + dem)[:hi]))
+        if case == "negative-slack":
+            cap = 2  # labels of weight 3 have slack -1, of weight 2 slack 0
+        elif case == "hub":
+            cap = int(lw[3] + dem[3] // 2)
+        elif case == "uncontested":
+            cap = 1 << 30
+        elif case == "exact-slack":  # label weights need not be the sums
+            even = np.arange(L) % 2 == 0
+            lw = np.where(dem > 0, cap - np.where(even, dem, mid), lw)
+        maxw = np.asarray(cap, dtype=np.int32)
+    else:
+        half = np.where(np.arange(L) % 2 == 0, lw + dem // 2, lw + dem + 1)
+        maxw = np.where(np.arange(L) < k, half, 0)
+        if case == "negative-slack":
+            maxw[:8] = lw[:8] - 1 - np.arange(8)
+        elif case == "hub":
+            maxw[3] = lw[3] + dem[3] // 2
+        elif case == "uncontested":
+            maxw[:k] = lw[:k] + dem[:k] + 10**6
+        elif case == "exact-slack":
+            maxw[:k] = lw[:k] + np.where(np.arange(k) % 2 == 0, dem[:k], mid[:k])
+        maxw = maxw.astype(np.int32)
+    c.update(lw=lw.astype(np.int32), maxw=maxw)
+    return c
+
+
+def commit_call(c, dev):
+    """(args, kwargs) of ``lp_kernels.commit_moves`` for a case on ``dev``."""
+    def T(x):
+        return torch.from_numpy(np.array(x)).to(dev)  # a 0-d cap stays 0-d
+
+    f = c["flags"]
+    args = (lp.LPState(T(c["labels"]), T(c["lw"]), None), T(c["target"]), T(c["tconn"]),
+            T(c["own"]), T(c["node_w"]), T(c["maxw"]), c["L"], T(c["prio"]), T(c["coin"]),
+            T(c["act"]))
+    kwargs = dict(active_prob=f["active_prob"], allow_tie_moves=f["allow_tie_moves"],
+                  active=T(c["color"]) if f["has_active"] else None)
+    return args, kwargs
+
+
+def check_commit_kernel(args, kwargs, dev, what):
+    """Both plain auctions on the CPU agree; the kernel equals them on
+    ``dev``, twice (the mover list's order differs from run to run)."""
+    refs = [lp_kernels.commit_moves(*args, **kwargs, radix=r) for r in (True, False)]
+    assert_equal(refs[0], refs[1], f"{what}: the plain auctions differ")
+    dargs, dkw = to(args, dev), {k: to(v, dev) for k, v in kwargs.items()}
+    outs = [lp_kernels.commit_moves(*dargs, **dkw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert_equal(refs[0], outs[0], f"{what}: kernel != plain")
+    assert_equal(outs[0], outs[1], f"{what}: two kernel runs differ")
+    return refs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inst", ["cluster", "refine"])
+@pytest.mark.parametrize("case", COMMIT_CASES)
+def test_commit_kernel_edge_cases_match_plain(cuda, case, inst):
+    args, kwargs = commit_call(commit_case(case, inst), "cpu")
+    check_commit_kernel(args, kwargs, cuda, f"{case} {inst}")
+
+
+def commit_regime(regime):
+    """(args, kwargs) of a commit in one of the kernel's regimes, on the CPU."""
+    gen = torch.Generator().manual_seed(23)
+    i32 = torch.int32
+
+    def randint(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, dtype=i32)
+
+    n = {"L2": 50_000, "L64": 200_000, "hub": 400_000, "n0": 0, "no-movers": 30_000}[regime]
+    if regime in ("hub", "no-movers"):
+        L, labels = n, torch.arange(n, dtype=i32)
+    else:
+        L = 2 if regime == "L2" else 64
+        labels = randint(0, 2 if regime == "L2" else 16, n)
+    node_w = randint(1, 3, n)
+    lw = torch.zeros(L, dtype=i32).index_add_(0, labels, node_w)
+    prio = randint(0, (1 << 30) - 1, n)
+    prio = torch.where(torch.rand(n, generator=gen) < 0.3, randint(0, 64, n) << 24, prio)
+    tconn, own = randint(1, 20, n), torch.zeros(n, dtype=i32)
+    if regime == "L2":
+        target = 1 - labels
+        maxw = lw + torch.tensor([n // 8, 3 * n], dtype=i32)  # block 0 contested
+    elif regime in ("L64", "n0"):
+        target = randint(0, 16, n)
+        maxw = torch.zeros(L, dtype=i32)
+        maxw[:16] = lw[:16] + n // 64 * (torch.arange(16, dtype=i32) % 4)
+    elif regime == "hub":
+        # 30% of the nodes move to random labels (few contested); 50 labels
+        # take 33-64 movers each (a warp's two items a lane), 20 labels
+        # 1,000 each (the block path) and one hub 150,000.
+        target = torch.where(torch.rand(n, generator=gen) < 0.3, randint(0, n, n),
+                             labels)
+        perm = torch.randperm(n, generator=gen)
+        target[perm[:150_000]] = 7
+        at = 150_000
+        for j in range(70):
+            size = 1000 if j < 20 else 33 + (7 * j) % 32
+            target[perm[at:at + size]] = 1000 + 3 * j
+            at += size
+        maxw = torch.tensor(6, dtype=i32)
+        lw[7] = 0  # label weights need not be the sums
+    else:  # no movers: every rating at most the own connection
+        target, tconn = randint(0, n, n), torch.zeros(n, dtype=i32)
+        maxw = torch.tensor(4, dtype=i32)
+    args = (lp.LPState(labels, lw, None), target, tconn, own, node_w, maxw, L, prio)
+    return args, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["L2", "L64", "hub", "n0", "no-movers"])
+def test_commit_kernel_regimes_match_plain(cuda, regime):
+    """L = 2; L = 64 with 16 live blocks; L = n with a scalar cap, few
+    contested labels, 20 labels of 100-2000 movers and a hub of 150,000;
+    n = 0; no movers."""
+    args, kwargs = commit_regime(regime)
+    ref = check_commit_kernel(args, kwargs, cuda, regime)
+    moved = int(ref.num_moved)
+    assert moved == 0 if regime in ("n0", "no-movers") else moved > 0
 
 
 @pytest.mark.cuda

@@ -32,6 +32,7 @@ from kaminpar_tpu_torch.graph.device_compressed import DeviceCompressedView
 from kaminpar_tpu_torch.ops import lp as tlp
 from kaminpar_tpu_torch.ops import lp_kernels
 from kaminpar_tpu_torch.refinement import balancer as tbal
+from test_torch_cuda import COMMIT_CASES, commit_call, commit_case, commit_movers
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -309,6 +310,53 @@ def test_commit_scalar_cap_radix_and_bitwise_agree():
         )
         assert_equal(ref[0], out.labels, f"labels radix={radix}")
         assert_equal(ref[1], out.label_weights, f"weights radix={radix}")
+
+
+def auction_oracle(c):
+    """The commit by the fact the kernel rests on: a mover i with target t
+    is admitted iff D_t(p_i) <= slack_t, D_t(p) the weight of t's movers
+    with priority <= p and slack_t = cap_t - label_w_t.  int64 numpy, one
+    target at a time, every pair of its movers compared."""
+    n, L = c["labels"].shape[0], c["L"]
+    moved, desired = commit_movers(c)
+    slack = (np.broadcast_to(c["maxw"], (L,)).astype(np.int64)
+             - c["lw"].astype(np.int64))
+    accept = np.zeros(n, dtype=bool)
+    for tgt in np.unique(desired[moved]):
+        i = np.flatnonzero(moved & (desired == tgt))
+        p, w = c["prio"][i].astype(np.int64), c["node_w"][i].astype(np.int64)
+        d = ((p[None, :] <= p[:, None]) * w[None, :]).sum(axis=1)
+        accept[i] = d <= slack[tgt]
+    new_labels = np.where(accept, desired, c["labels"]).astype(np.int32)
+    new_weights = np.zeros(L, dtype=np.int64)
+    np.add.at(new_weights, new_labels, c["node_w"].astype(np.int64))
+    return new_labels, new_weights, int(accept.sum())
+
+
+@pytest.mark.parametrize("inst", ["cluster", "refine"])
+@pytest.mark.parametrize("case", COMMIT_CASES)
+def test_commit_auction_fact_matches_pallas_and_plain(case, inst):
+    """Admitting a mover iff D_t(p_i) <= slack_t equals the Pallas commit
+    body (both auctions, interpret mode) and the plain version (both
+    auctions) on the edge cases of the auction, in both instantiations
+    (the same cases run against the CUDA kernel in test_torch_cuda.py)."""
+    c = commit_case(case, inst)
+    ref = auction_oracle(c)
+    assert 0 < ref[2] and int(ref[1].sum()) == int(c["node_w"].astype(np.int64).sum())
+    f = c["flags"]
+    for radix in (True, False):
+        out = pallas_commit(c["labels"], c["node_w"], c["lw"], c["maxw"], c["target"],
+                            c["tconn"], c["own"], c["prio"], c["coin"], c["act"],
+                            c["color"], c["L"], radix=radix, **f)
+        what = f"{case} {inst} radix={radix}"
+        assert_equal(ref[0], out[0], f"Pallas labels {what}")
+        assert_equal(ref[1], out[1], f"Pallas weights {what}")
+        assert int(out[2]) == ref[2], what
+        args, kwargs = commit_call(c, "cpu")
+        out = lp_kernels.commit_moves(*args, **kwargs, radix=radix)
+        assert_equal(ref[0], out.labels, f"plain labels {what}")
+        assert_equal(ref[1], out.label_weights, f"plain weights {what}")
+        assert int(out.num_moved) == ref[2], what
 
 
 # -- whole rounds with the JAX package's draws -----------------------------
