@@ -35,22 +35,28 @@ which fails the run when it fails:
    view) is compared and timed;
 5. ``device_decode`` "off" against "finest" on ``rmat_graph(scale - 4)``
    into ``OFF_FINEST_K`` blocks: equal partitions;
-6. kernels of the default path: on the degree-bucketed layout of
-   ``rmat_graph(scale - 2)`` with its isolated nodes stripped (the shapes
-   that path gives them) the dense rating kernel and the commit kernel
-   are compared with their plain versions and timed; then, on a small
-   graph, one whole LP round and one balancer round on the card are
-   compared with the plain rounds on the CPU, with the same draws;
-7. default path: ``KaMinPar("default").compute_partition(k)`` on
-   ``rmat_graph(scale - 2)``, counters and peaks as in 4; the partition
-   must be feasible, use all k blocks and cut less than 0.95x the edge
-   weight a random partition cuts (RMAT graphs are expander-like: a good
-   k=16 cut is about 0.9x random), and both dense-path kernels must have
-   run.  Both paths run below the terapart path's scale to keep the run
-   inside its time limit: their host-side initial partitioning and
-   extension take minutes (PERF.md);
-8. a small graph partitioned on the card and on the CPU: both feasible,
-   cuts within 1.3x of each other.
+6. kernels of the default path: on the degree-bucketed layout of the
+   same graph with its isolated nodes stripped (the shapes that path
+   gives them) the dense rating kernel and the commit kernel are
+   compared with their plain versions and timed; then, on a small graph,
+   one whole LP round and one balancer round on the card are compared
+   with the plain rounds on the CPU, with the same draws;
+7. default path: ``KaMinPar("default").compute_partition(k)`` on the
+   same graph, counters and peaks as in 4; the partition must be
+   feasible, use all k blocks and cut less than 0.95x the edge weight a
+   random partition cuts (RMAT graphs are expander-like: a good k=16 cut
+   is about 0.9x random), and both dense-path kernels must have run.
+   Both paths' lines give the coarsest graph's n, m and k0, the extension
+   split into recursive-bisection and nested-pipeline jobs (seconds,
+   counts) and the bipartition pool's stats; every bisection of both
+   must have run on the device pool;
+8. the device bipartition pool on the default path's coarsest graph (its
+   first bisection): on the card and on the CPU from the same recorded
+   draws, labels and stats equal; the lane loop on the card with host
+   synchronisation made an error; one bisection timed on the card, with
+   the device events it launched and their device time;
+9. a small graph partitioned on the card (device pool) and on the CPU
+   (host pool): both feasible, cuts within 1.3x of each other.
 
 The rating kernels are also timed bucket by bucket: one JSON line per
 bucket with its width, rows, real rows, time and bound, beside the
@@ -853,7 +859,7 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
     import torch
 
     from kaminpar_tpu_torch.graph.compressed import CompressedGraph
-    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.ops import bipartition, lp_kernels
 
     def refuse(self, device="cpu"):
         raise AssertionError("the terapart path decompressed on the host")
@@ -863,11 +869,13 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
     try:
         with PeakTracker() as mem:
             lp_kernels.reset_launches()
+            bipartition.reset_pool_stats()
             t0 = time.perf_counter()
             part = solver.compute_partition(k, epsilon=eps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(lp_kernels.LAUNCHES)
+            pool = bipartition.pool_stats_snapshot()
     finally:
         CompressedGraph.decompress = host_decompress
     p = solver.last_partition
@@ -885,9 +893,12 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
                 dense_resident_bytes=cv.dense_resident_bytes(),
                 compressed_host_bytes=solver.compressed_graph.memory_bytes(),
                 levels=solver.last_partitioner.num_levels,
-                phase_s=solver.last_partitioner.phase_seconds, launches=launches,
-                commit_calls=mem.commit_log("terapart"))
+                coarsest=solver.last_partitioner.coarsest,
+                phase_s=solver.last_partitioner.phase_seconds,
+                extension_jobs=solver.last_partitioner.extension_jobs, pool=pool,
+                launches=launches, commit_calls=mem.commit_log("terapart"))
     log(json.dumps(info))
+    check_pool_served(pool, "terapart")
     if not feasible:
         raise AssertionError("terapart partition is infeasible")
     if part.shape != (graph.n,) or bw.min() <= 0:
@@ -972,20 +983,148 @@ def phase_round_reference(device):
         f"card equal the plain rounds on the CPU")
 
 
+def check_pool_served(pool: dict, path: str) -> None:
+    """Every bisection of a path on the card ran on the device pool."""
+    if pool["calls"] <= 0 or pool["host_bisections"]:
+        raise AssertionError(f"the {path} path's bisections did not all take the device "
+                             f"pool: {pool}")
+
+
+class CoarsestCapture:
+    """Keeps the first graph the deep partitioner bisects, its coarsest
+    (host CSR), with its block count k0 and block budgets."""
+
+    def __enter__(self):
+        from kaminpar_tpu_torch.partitioning import deep
+
+        self._deep, self._orig = deep, deep.recursive_bipartition
+        self.graph = None
+
+        def capture(g, k, budgets, rng, ctx=None, **kwargs):
+            if self.graph is None:
+                self.graph, self.k0, self.budgets, self.ctx = g, k, budgets.copy(), ctx
+            return self._orig(g, k, budgets, rng, ctx, **kwargs)
+
+        deep.recursive_bipartition = capture
+        return self
+
+    def __exit__(self, *exc):
+        self._deep.recursive_bipartition = self._orig
+
+
+def device_activity(fn):
+    """Device events (kernels, memsets, copies) that one call of ``fn``
+    launches and the device milliseconds they take, traced with
+    ``torch.profiler``; (None, None) when three traces recorded no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if events:
+            return len(events), sum(ev.time_range.elapsed_us() for ev in events) / 1e3
+    return None, None
+
+
+def phase_pool(cap, device):
+    """The device pool on the default path's coarsest graph (its first
+    bisection: the same budgets and block count): on the card and on the
+    CPU from the same draws (drawn on the CPU by a seeded generator, copied
+    to the card), exact; the lane loop on the card under
+    ``set_sync_debug_mode("error")`` (no host synchronisation before the
+    one readback); then one bisection with the production draws timed on
+    the card, with the device events it launched and their device time."""
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.graph.csr import from_numpy_csr
+    from kaminpar_tpu_torch.initial.bipartitioner import _twoway_budgets
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    g, k0, ctx = cap.graph, cap.k0, cap.ctx
+    mw = _twoway_budgets(g, k0, cap.budgets, (k0 + 1) // 2, ctx.use_adaptive_epsilon)
+    methods, _ = bip.method_lane_counts(ctx, k0)
+    dpv = from_numpy_csr(g.row_ptr, g.col_idx, g.node_w, g.edge_w, device=device).padded()
+    trips, rounds = bip.grow_trip_count(dpv.n_pad), bip.fm_round_count(
+        dpv.n_pad, ctx.fm_num_iterations)
+    seed = 20260
+    t0 = time.perf_counter()
+    rec = bip.RecordedPoolDraws(bip.GeneratorPoolDraws(seed, methods, dpv.n_pad, "cpu"),
+                                methods, g.n, trips, rounds)
+    rec_card = rec.to(device)
+    draw_s = time.perf_counter() - t0
+    args = (g.row_ptr, g.col_idx, g.node_w, g.edge_w, mw, seed, ctx, k0)
+    t0 = time.perf_counter()
+    cpu_labels, cpu_stats = bip.pool_bipartition_device(*args, device="cpu",
+                                                        draws=lambda *a: rec)
+    cpu_s = time.perf_counter() - t0
+    card_labels, card_stats = bip.pool_bipartition_device(*args, device=device,
+                                                          draws=lambda *a: rec_card)
+    equal = bool(np.array_equal(cpu_labels, card_labels)) and cpu_stats == card_stats
+
+    pg = bip.PoolGraph.from_padded(dpv, int(g.node_w.sum()))
+    target = bip.grow_target(pg.total, int(mw[0]), int(mw[1]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = bip._pool_kernel(rec_card, pg, g.n, target, int(mw[0]), int(mw[1]),
+                                  methods=methods, grow_trips=trips, fm_rounds=rounds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_free_equal = bool(np.array_equal(packed.cpu().numpy()[: g.n], card_labels))
+
+    def bisect():
+        return bip.pool_bipartition_device(*args, device=device)
+
+    bisect()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bisect()  # ends in its readback
+        walls.append((time.perf_counter() - t0) * 1e3)
+    events, device_ms = device_activity(bisect)
+    ms = sorted(walls)[1]
+    lanes = sum(c for _, c in methods)
+    budget = bip.edge_temp_budget(device)
+    info = dict(phase="pool", graph="the default path's coarsest graph", n=g.n,
+                m=int(len(g.col_idx)), n_pad=dpv.n_pad, m_pad=dpv.m_pad, k0=k0,
+                budgets=[int(x) for x in mw], methods=[list(x) for x in methods],
+                lanes=lanes, grow_trips=trips, fm_rounds=rounds,
+                pass_bytes=lanes * dpv.m_pad * bip._EDGE_TEMP_BYTES, edge_temp_budget=budget,
+                chunks=len(bip.lane_chunks(methods, dpv.m_pad, budget)),
+                equal=equal, sync_free=sync_free_equal, stats=card_stats,
+                cpu_s=cpu_s, draw_record_s=draw_s, ms=ms, walls_ms=walls,
+                device_events=events, device_ms=device_ms,
+                device_idle_share=None if device_ms is None else 1 - device_ms / ms)
+    log(json.dumps(info))
+    if not equal:
+        raise AssertionError("the pool on the card differs from the pool on the CPU")
+    if not sync_free_equal:
+        raise AssertionError("the sync-free pool run differs from the pool on the card")
+    return info
+
+
 def phase_main_path(graph, k: int, eps: float):
     import torch
 
     import kaminpar_tpu_torch as kp
-    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.ops import bipartition, lp_kernels
     solver = kp.KaMinPar("default")  # no device: cuda:0
     solver.set_graph(graph)
-    with PeakTracker() as mem:
+    with PeakTracker() as mem, CoarsestCapture() as cap:
         lp_kernels.reset_launches()
+        bipartition.reset_pool_stats()
         t0 = time.perf_counter()
         part = solver.compute_partition(k, epsilon=eps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(lp_kernels.LAUNCHES)
+        pool = bipartition.pool_stats_snapshot()
     p = solver.last_partition
     cut = int(p.edge_cut())
     bw = p.block_weights()
@@ -997,9 +1136,11 @@ def phase_main_path(graph, k: int, eps: float):
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
                 wall_s=wall, peak_bytes=mem.peak, peak_outside_bytes=mem.outside,
                 peak_calls=mem.calls, levels=part_info.num_levels,
-                phase_s=part_info.phase_seconds, launches=launches,
+                coarsest=part_info.coarsest, phase_s=part_info.phase_seconds,
+                extension_jobs=part_info.extension_jobs, pool=pool, launches=launches,
                 commit_calls=mem.commit_log("default"))
     log(json.dumps(info))
+    check_pool_served(pool, "default")
     if not feasible:
         raise AssertionError("main path partition is infeasible")
     if part.shape != (graph.n,) or bw.min() <= 0:
@@ -1008,28 +1149,37 @@ def phase_main_path(graph, k: int, eps: float):
         raise AssertionError("main path cut is not clearly below a random partition's")
     if launches["lp_rate"] <= 0 or launches["lp_commit"] <= 0:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
-    return info
+    return info, cap
 
 
 def phase_small_reference():
-    """A small graph on the card and on the CPU (plain versions): both
-    feasible, cuts within 1.3x.  The two devices draw different random
-    streams, so the partitions differ."""
+    """A small graph on the card (kernels, the device bipartition pool:
+    ``ip_backend`` "auto") and on the CPU (plain versions, the host pool):
+    both feasible, cuts within 1.3x, the bound this comparison had when
+    both ran the host pool.  The two runs draw different random streams and
+    bisect with different pools, so the partitions differ."""
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.ops import bipartition
 
     g = generators.rmat_graph(12, 8, seed=1)
-    cuts = {}
+    cuts, pool_calls = {}, {}
     for dev in ("cuda", "cpu"):
         solver = kp.KaMinPar("default", device=dev)
         solver.set_graph(g)
+        bipartition.reset_pool_stats()
         solver.compute_partition(8)
+        pool_calls[dev] = bipartition.pool_stats_snapshot()["calls"]
         if not solver.last_partition.is_feasible():
             raise AssertionError(f"small reference infeasible on {dev}")
         cuts[dev] = solver.last_partition.edge_cut()
     ratio = cuts["cuda"] / max(cuts["cpu"], 1)
     log(json.dumps(dict(phase="small_reference", graph="rmat_graph(12, 8, seed=1)", k=8,
-                        cut_cuda=cuts["cuda"], cut_cpu=cuts["cpu"], ratio=ratio)))
+                        cut_cuda=cuts["cuda"], cut_cpu=cuts["cpu"], ratio=ratio,
+                        pool_calls=pool_calls)))
+    if pool_calls["cuda"] <= 0 or pool_calls["cpu"] != 0:
+        raise AssertionError(f"the card run must take the device pool, the CPU run the "
+                             f"host pool: {pool_calls}")
     if not 1 / 1.3 <= ratio <= 1.3:
         raise AssertionError(f"card and CPU cuts differ by more than 1.3x: {cuts}")
 
@@ -1080,9 +1230,9 @@ def main() -> int:
             cv = DeviceCompressedView(terapart.compressed_graph, device)
             phase_refinement_commit(cv, saved["partition"], saved["caps"], device, K)
             del cv
-        del terapart, graph
+        del terapart
         torch.cuda.empty_cache()
-        phase_kernels(finest_graph(rmat(args.scale - 2), K, device), device, K)
+        phase_kernels(finest_graph(graph, K, device), device, K)
         log(smi)
         return 0
     tinfo = phase_terapart_path(terapart, graph, K, EPSILON, compress_s)
@@ -1093,18 +1243,19 @@ def main() -> int:
     commit["instances"].append(phase_refinement_commit(
         terapart.last_partitioner.compressed_view, p.partition, p.max_block_weights, device, K))
     del p
-    del terapart, graph
+    del terapart
     torch.cuda.empty_cache()
     phase_off_vs_finest(rmat(args.scale - 4), args.scale - 4, OFF_FINEST_K, EPSILON)
 
-    graph = rmat(args.scale - 2)
     work = finest_graph(graph, K, device)
     rate, commit_default = phase_kernels(work, device, K)
     commit["instances"].insert(1, commit_default)
     del work
     torch.cuda.empty_cache()
     phase_round_reference(device)
-    info = phase_main_path(graph, K, EPSILON)
+    info, coarsest = phase_main_path(graph, K, EPSILON)
+    del graph
+    phase_pool(coarsest, device)
     phase_small_reference()
 
     kernels = []

@@ -82,8 +82,14 @@ class CoarseningContext:
 
 @dataclass
 class InitialPartitioningContext:
-    """The host bipartitioning pool + 2-way FM (``initial/bipartitioner.py``)."""
+    """The bipartitioning pool: the host pool + 2-way FM
+    (``initial/bipartitioner.py``) or the lane-batched device pool
+    (``ops/bipartition.py``).  ``ip_backend`` "auto" runs the device pool
+    for a graph on a CUDA device and the host pool on the CPU; "device"
+    forces the device pool (also on CPU tensors, as the parity tests do);
+    "host" is for CPU graphs only and is refused for a CUDA graph."""
 
+    ip_backend: str = "auto"
     use_adaptive_epsilon: bool = True
     min_num_repetitions: int = 4
     max_num_repetitions: int = 12

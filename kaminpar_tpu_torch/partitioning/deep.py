@@ -3,12 +3,13 @@
 
 ``partition() = uncoarsen(initial_partition(coarsen()))``: coarsen until
 ``n <= 2C``, bipartition the coarsest graph recursively into a small k0 with
-the host pool, then uncoarsen: project, *extend* the partition towards k
-where the level carries more blocks (``compute_k_for_n``), and refine.
-Extension splits each block's subgraph on the host (recursive
-bipartitioning), or, for splits into four or more parts of subgraphs of at
-least ``nested_extension_n`` nodes, with a nested deep pipeline on the
-graph's device.
+the bipartitioning pool, then uncoarsen: project, *extend* the partition
+towards k where the level carries more blocks (``compute_k_for_n``), and
+refine.  Extension splits each block's subgraph by recursive bipartitioning,
+or, for splits into four or more parts of subgraphs of at least
+``nested_extension_n`` nodes, with a nested deep pipeline.  Every bisection
+runs on the graph's device when ``ip_backend`` resolves to "device" (a CUDA
+graph under "auto"), else on the host.
 
 The input is a CSRGraph, or a ``CompressedGraph`` (the TeraPart tier).
 Under ``device_decode`` "finest"/"auto" a ``DeviceCompressedView`` stands
@@ -41,11 +42,13 @@ from .partition_utils import compute_k_for_n, intermediate_block_weights, split_
 
 
 def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
-                     ctx: Context) -> np.ndarray:
+                     ctx: Context, jobs: dict) -> np.ndarray:
     """Split every block of a cur_k-way partition so that the result has
     new_k blocks; returns the (n,) int32 host partition.  The block
-    subgraphs are extracted and split on the host; block b's job runs under
-    its own seed, so the result does not depend on job order."""
+    subgraphs are extracted on the host; block b's job runs under its own
+    seed, so the result does not depend on job order.  ``jobs`` accumulates
+    the count and seconds of both kinds of job (``bisections`` /
+    ``bisections_s`` and ``nested`` / ``nested_s``)."""
     final_bw = np.asarray(ctx.partition.max_block_weights, dtype=np.int64)
     k = len(final_bw)
     off_new = split_offsets(k, new_k)
@@ -69,14 +72,19 @@ def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
             [final_bw[off_new[j] : off_new[j + 1]].sum() for j in range(lo, hi)],
             dtype=np.int64,
         )
+        t0 = time.perf_counter()
         with RandomState.scoped(base_seed ^ (b * 0x9E3779B9 & 0x7FFFFFFF)):
             if sub_k >= 4 and sub.n >= ctx.initial_partitioning.nested_extension_n:
+                kind = "nested"
                 subpart = _nested_partition(sub, sub_k, budgets, ctx, graph.device)
             else:
+                kind = "bisections"
                 subpart = recursive_bipartition(
                     sub, sub_k, budgets, RandomState.numpy_rng(),
-                    ctx.initial_partitioning,
+                    ctx.initial_partitioning, device=graph.device,
                 )
+        jobs[kind] += 1
+        jobs[kind + "_s"] += time.perf_counter() - t0
         out[nodes] = subpart + lo
     return out
 
@@ -110,9 +118,13 @@ class DeepMultilevelPartitioner:
         self.compressed = compressed
         self.device = graph.device if graph is not None else torch.device(device)
         # Host seconds of the three phases of the last partition() call
-        # (and of the extension steps inside uncoarsening), and the number
-        # of coarsening levels it built.
+        # (and of the extension steps inside uncoarsening, split into
+        # recursive-bisection and nested-pipeline jobs), the number of
+        # extension jobs of each kind, the coarsest graph's n, m and block
+        # count k0, and the number of coarsening levels it built.
         self.phase_seconds = {}
+        self.extension_jobs = {}
+        self.coarsest = {}
         self.num_levels = 0
         # The DeviceCompressedView the finest level ran off, if any.
         self.compressed_view = None
@@ -155,6 +167,7 @@ class DeepMultilevelPartitioner:
         t1 = time.perf_counter()
 
         cur_k = min(k, compute_k_for_n(coarsest.n, C, k))
+        self.coarsest = dict(n=coarsest.n, m=coarsest.m, k0=cur_k)
         Logger.log(
             f"  deep: coarsest n={coarsest.n} m={coarsest.m} "
             f"levels={coarsener.num_levels} k0={cur_k}",
@@ -165,19 +178,21 @@ class DeepMultilevelPartitioner:
             np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
         )
         part = recursive_bipartition(
-            graph_to_host(coarsest), cur_k, budgets, rng, ctx.initial_partitioning
+            graph_to_host(coarsest), cur_k, budgets, rng, ctx.initial_partitioning,
+            device=coarsest.device,
         )
         t2 = time.perf_counter()
         p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
 
         extension_s = 0.0
+        jobs = {"bisections": 0, "bisections_s": 0.0, "nested": 0, "nested_s": 0.0}
         while True:
             graph = coarsener.current_graph
             target_k = compute_k_for_n(graph.n, C, k) if coarsener.num_levels > 0 else k
             if cur_k < target_k:
                 te = time.perf_counter()
                 part = extend_partition(
-                    graph, p_graph.partition.cpu().numpy(), cur_k, target_k, ctx
+                    graph, p_graph.partition.cpu().numpy(), cur_k, target_k, ctx, jobs
                 )
                 extension_s += time.perf_counter() - te
                 cur_k = target_k
@@ -193,5 +208,8 @@ class DeepMultilevelPartitioner:
             "initial_partitioning": t2 - t1,
             "uncoarsening": time.perf_counter() - t2,
             "uncoarsening.extension": extension_s,
+            "uncoarsening.extension.bisections": jobs["bisections_s"],
+            "uncoarsening.extension.nested": jobs["nested_s"],
         }
+        self.extension_jobs = {"bisections": jobs["bisections"], "nested": jobs["nested"]}
         return p_graph

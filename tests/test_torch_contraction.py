@@ -64,7 +64,7 @@ def test_recursive_bipartition_matches_jax(name, k):
     tg = GRAPHS[name](tgen)
     host = graph_to_host(tg)
     budgets = np.full(k, int(host.node_w.sum() / k * 1.03) + 1, dtype=np.int64)
-    ctx = InitialPartitioningContext()
+    ctx = InitialPartitioningContext(ip_backend="host")
     jctx = JaxIPContext(ip_backend="host")
     for field in dataclasses.fields(ctx):
         assert getattr(ctx, field.name) == getattr(jctx, field.name), field.name

@@ -597,3 +597,120 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
         lp_kernels.rate_bucket(labels, pv.node_w.to(cuda), lw, maxw, b, tie.t(), **flags)
     with pytest.raises(ValueError):
         lp_kernels.rate_bucket(labels, pv.node_w, lw, maxw, b, tie, **flags)  # mixed devices
+
+
+def pool_case(name):
+    """A host CSR graph and loose bisection budgets for the pool tests."""
+    from kaminpar_tpu_torch.partitioning.kway import graph_to_host
+
+    g = {"rmat": lambda: generators.rmat_graph(10, 8, seed=1),
+         "grid": lambda: generators.grid2d_graph(24, 24),
+         "star": lambda: generators.star_graph(200)}[name]()
+    host = graph_to_host(g)
+    W = host.total_node_weight
+    return host, np.array([int(0.52 * W), int(0.52 * W)], dtype=np.int64)
+
+
+def recorded_draws(host, ipc, final_k, seed):
+    """Every draw of one pool call, from a seeded generator on the CPU."""
+    from kaminpar_tpu_torch.graph.csr import from_numpy_csr
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    methods, _ = bip.method_lane_counts(ipc, final_k)
+    n_pad = from_numpy_csr(host.row_ptr, host.col_idx).padded().n_pad
+    rec = bip.RecordedPoolDraws(bip.GeneratorPoolDraws(seed, methods, n_pad, "cpu"), methods,
+                                host.n, bip.grow_trip_count(n_pad),
+                                bip.fm_round_count(n_pad, ipc.fm_num_iterations))
+    return methods, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final_k", [2, 16])
+@pytest.mark.parametrize("name", ["rmat", "grid", "star"])
+def test_pool_on_card_matches_cpu_from_recorded_draws(cuda, name, final_k):
+    from kaminpar_tpu_torch.context import InitialPartitioningContext
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    host, mw = pool_case(name)
+    ipc = InitialPartitioningContext()
+    _, rec = recorded_draws(host, ipc, final_k, seed=3)
+    rec_card = rec.to(cuda)
+    args = (host.row_ptr, host.col_idx, host.node_w, host.edge_w, mw, 3, ipc, final_k)
+    ref = bip.pool_bipartition_device(*args, device="cpu", draws=lambda *a: rec)
+    out = bip.pool_bipartition_device(*args, device=cuda, draws=lambda *a: rec_card)
+    assert np.array_equal(ref[0], out[0])
+    assert ref[1] == out[1]
+    assert out[1]["feasible"]
+
+
+@pytest.mark.cuda
+def test_pool_lane_loop_makes_no_host_sync(cuda):
+    """The whole lane loop and the selection run with host synchronisation
+    made an error; the one readback comes after."""
+    from kaminpar_tpu_torch.context import InitialPartitioningContext
+    from kaminpar_tpu_torch.graph.csr import from_numpy_csr
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    host, mw = pool_case("rmat")
+    ipc = InitialPartitioningContext()
+    methods, rec = recorded_draws(host, ipc, 16, seed=4)
+    rec_card = rec.to(cuda)
+    pv = from_numpy_csr(host.row_ptr, host.col_idx, host.node_w, host.edge_w,
+                        device=cuda).padded()
+    g = bip.PoolGraph.from_padded(pv, host.total_node_weight)
+    target = bip.grow_target(g.total, int(mw[0]), int(mw[1]))
+    draws = bip.GeneratorPoolDraws(9, methods, pv.n_pad, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = [bip._pool_kernel(d, g, host.n, target, int(mw[0]), int(mw[1]),
+                                   methods=methods, grow_trips=bip.grow_trip_count(pv.n_pad),
+                                   fm_rounds=bip.fm_round_count(pv.n_pad, ipc.fm_num_iterations))
+                  for d in (rec_card, draws)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref, _ = bip.pool_bipartition_device(host.row_ptr, host.col_idx, host.node_w, host.edge_w,
+                                         mw, 4, ipc, 16, device="cpu", draws=lambda *a: rec)
+    assert np.array_equal(packed[0].cpu().numpy()[: host.n], ref)
+    assert packed[1].shape == (pv.n_pad + bip.STATS_LEN,)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_with_auto_backend_takes_the_device_pool(cuda):
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    g = generators.rmat_graph(12, 8, seed=1)
+    solver = kp.KaMinPar("default")
+    assert solver.ctx.initial_partitioning.ip_backend == "auto"
+    solver.set_graph(g)
+    bip.reset_pool_stats()
+    solver.compute_partition(8)
+    snap = bip.pool_stats_snapshot()
+    assert snap["calls"] > 0 and snap["host_bisections"] == 0
+    assert snap["chunked_calls"] == 0
+    assert solver.last_partition.is_feasible()
+    assert solver.last_partitioner.extension_jobs["bisections"] > 0
+    with pytest.raises(ValueError):
+        solver.ctx.initial_partitioning.ip_backend = "host"
+        solver.compute_partition(8)
+
+
+@pytest.mark.cuda
+def test_pool_on_card_method_by_method_equals_whole_pool(cuda, monkeypatch):
+    """The card's memory budget is positive, and a pool run method by method
+    (what a pool too large for half the card's free memory does) gives the
+    whole pool's result and is counted."""
+    from kaminpar_tpu_torch.context import InitialPartitioningContext
+    from kaminpar_tpu_torch.ops import bipartition as bip
+
+    host, mw = pool_case("rmat")
+    ipc = InitialPartitioningContext()
+    assert bip.edge_temp_budget(cuda) > 0
+    args = (host.row_ptr, host.col_idx, host.node_w, host.edge_w, mw, 5, ipc, 16)
+    bip.reset_pool_stats()
+    whole = bip.pool_bipartition_device(*args, device=cuda)
+    assert bip.pool_stats_snapshot()["chunked_calls"] == 0
+    monkeypatch.setattr(bip, "edge_temp_budget", lambda device: 0)
+    split = bip.pool_bipartition_device(*args, device=cuda)
+    assert bip.pool_stats_snapshot()["chunked_calls"] == 1
+    assert np.array_equal(whole[0], split[0]) and whole[1] == split[1]

@@ -65,3 +65,31 @@ def test_partitions_with_jax_unimportable():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+def test_device_pool_runs_with_jax_unimportable():
+    """The device bipartition pool (``ops/bipartition.py``, the port's own
+    copy of the JAX package's pool) is covered by the import scan and runs
+    a whole partition on CPU tensors without jax."""
+    assert ROOT / "kaminpar_tpu_torch" / "ops" / "bipartition.py" in PORT_FILES
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kaminpar_tpu'] = None\n"
+        "import kaminpar_tpu_torch as kp\n"
+        "from kaminpar_tpu_torch.graph import generators\n"
+        "from kaminpar_tpu_torch.ops import bipartition\n"
+        "s = kp.KaMinPar('default', device='cpu')\n"
+        "s.ctx.initial_partitioning.ip_backend = 'device'\n"
+        "s.set_graph(generators.grid2d_graph(16, 16))\n"
+        "part = s.compute_partition(4)\n"
+        "assert s.last_partition.is_feasible() and part.shape == (256,)\n"
+        "assert bipartition.pool_stats_snapshot()['calls'] > 0\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
