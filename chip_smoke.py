@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                 # RMAT scale 22, k = 16, cuda:0
+    python3 chip_smoke.py                 # largek at RMAT scale 22, terapart 20, default 18
     python3 chip_smoke.py --scale 16      # a quicker run
+    python3 chip_smoke.py --path-scale 22 # terapart at scale 22 too
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
     python3 chip_smoke.py --partition F   # also save terapart's final partition in F
     python3 chip_smoke.py --kernels-only --partition F  # and time the commit on it
 
-``rmat_graph(scale, 16, seed=1)`` is generated once.  Phases, each of
+The terapart path runs on ``rmat_graph(path_scale, 16, seed=1)``
+(``path_scale`` = scale - 2 unless ``--path-scale`` gives it), the default
+path on ``rmat_graph(scale - 4)`` and the largek path on
+``rmat_graph(scale)``: the largek path's time pushed the earlier paths
+below its scale, default first.  Each graph is built once, on the card
+(``rmat_graph(device=...)``, the host build's graph).  Phases, each of
 which fails the run when it fails:
 
 1. device: the card's name, the device count and its power limit;
@@ -36,27 +42,49 @@ which fails the run when it fails:
 5. ``device_decode`` "off" against "finest" on ``rmat_graph(scale - 4)``
    into ``OFF_FINEST_K`` blocks: equal partitions;
 6. kernels of the default path: on the degree-bucketed layout of the
-   same graph with its isolated nodes stripped (the shapes that path
-   gives them) the dense rating kernel and the commit kernel are
+   terapart path's graph with its isolated nodes stripped (the shapes the
+   default path gives them at that scale) the dense rating kernel and the
+   commit kernel are
    compared with their plain versions and timed; then, on a small graph,
-   one whole LP round and one balancer round on the card are compared
-   with the plain rounds on the CPU, with the same draws;
-7. default path: ``KaMinPar("default").compute_partition(k)`` on the
-   same graph, counters and peaks as in 4; the partition must be
+   one whole LP round, one balancer round, one underload round and one
+   group-restricted balancer round on the card are compared with the
+   plain rounds on the CPU, with the same draws;
+7. default path: ``KaMinPar("default").compute_partition(k)`` on
+   ``rmat_graph(scale - 4)``, counters and peaks as in 4; the partition must be
    feasible, use all k blocks and cut less than 0.95x the edge weight a
    random partition cuts (RMAT graphs are expander-like: a good k=16 cut
    is about 0.9x random), and both dense-path kernels must have run.
-   Both paths' lines give the coarsest graph's n, m and k0, the extension
-   split into recursive-bisection and nested-pipeline jobs (seconds,
-   counts) and the bipartition pool's stats; every bisection of both
-   must have run on the device pool;
+   Every path's line gives the coarsest graph's n, m and k0, the
+   extension split (``phase_s``: the summed seconds of the
+   recursive-bisection and nested-pipeline jobs, which overlap in the
+   thread pool, the wall of the pooled sections and of device extension;
+   ``extension_jobs``: their counts) and the bipartition pool's stats
+   (its ``wall_s`` is summed over calls, which overlap too); every
+   bisection of every path must have run on the device pool;
 8. the device bipartition pool on the default path's coarsest graph (its
    first bisection): on the card and on the CPU from the same recorded
    draws, labels and stats equal; the lane loop on the card with host
    synchronisation made an error; one bisection timed on the card, with
    the device events it launched and their device time;
-9. a small graph partitioned on the card (device pool) and on the CPU
-   (host pool): both feasible, cuts within 1.3x of each other.
+9. largek path: ``KaMinPar("largek").compute_partition(LARGE_K)`` on its
+   graph, counters and peaks as in 4; feasible, all blocks filled, the cut
+   below ``LARGE_K_CUT_BOUND`` x a random partition's, device extension fired, both
+   dense-path kernels run; its phase split printed; then the rating and
+   commit kernels at ``L = LARGE_K`` on the path's own final partition,
+   compared with their plain versions and timed;
+10. minimum weights: ``KaMinPar("default")`` into k blocks of
+    ``rmat_graph(scale - 4)`` with ``min_epsilon`` = epsilon: feasible and
+    min-feasible;
+11. pooled = serial: largek into ``POOLED_SERIAL_K`` blocks of
+    ``rmat_graph(POOLED_SERIAL_SCALE)`` (device extension from 2,048
+    nodes) with the extension jobs on a pool of one thread a job (up to
+    the core count) and on one thread, the card's own width: equal
+    partitions, both walls;
+12. pool width: one device-pool bisection of a small graph timed alone
+    (wall, device events, device ms), then 8 of them on 1 and on 8
+    threads;
+13. a small graph partitioned on the card (device pool) and on the CPU
+    (host pool): both feasible, cuts within 1.3x of each other.
 
 The rating kernels are also timed bucket by bucket: one JSON line per
 bucket with its width, rows, real rows, time and bound, beside the
@@ -67,7 +95,9 @@ queues the timed calls.  Each kernel's own line also gives
 ``host_paced_ms``, the same calls timed with the card starting at once,
 which includes the wrapper's host overhead where that is the longer.
 
-It prints one JSON line per kernel, the ``{"kernels": [...]}`` line, the
+It prints one JSON line per kernel, the ``{"kernels": [...]}`` line (each
+kernel's ``launches`` summed over the paths that launch it, with
+``launches_by_path``), the
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with
 code 2 before printing any result.
@@ -99,6 +129,18 @@ K, EPSILON = 16, 0.03  # BASELINE.md config 2: RMAT scale 22, k = 16
 # Fewer blocks than K keep the two whole runs of the comparison short (the
 # host-side extension grows with the number of blocks).
 OFF_FINEST_K = 4
+# The largek path: KaMinPar("largek"), which KaMinPar's users run for large
+# k (BASELINE.md:21), at k = 1024.  Its cut must stay below 0.97x a random
+# partition's, not the 0.95x of the k = 16 paths: the reference's own
+# largek cuts RMAT graphs into 1024 blocks above 0.95x random (on
+# rmat_graph(14), JAX's device pool 0.9596x, its host pool 0.9501x), and
+# the port cuts as it does (0.9606x on the card there; 0.961x at scale
+# 22).  ``tests/test_torch_extension.largek_rmat_cut_ratios`` gives both
+# packages' ratios; PERF.md §6 has the table.
+LARGE_K = 1024
+LARGE_K_CUT_BOUND = 0.97
+# The pooled = serial check: largek into 64 blocks of rmat_graph(13).
+POOLED_SERIAL_SCALE, POOLED_SERIAL_K = 13, 64
 
 
 def log(msg: str) -> None:
@@ -153,7 +195,9 @@ class PeakTracker:
     compressed stream or dense) and the finest level's re-decode.  Each
     such call is bracketed by a synchronize and a reset of the peak
     statistic, so the run's peak is the largest of the per-segment peaks;
-    ``outside`` is the largest peak between the calls.  It also counts the
+    ``outside`` is the largest peak between the calls.  Where extension
+    jobs run in threads, one thread's reset can fall between another's
+    allocation and its read, so a peak may be missed there.  It also counts the
     commit kernel's calls by (n, L) in ``commit_calls``, with the most
     movers one target had in them (one read-back per call)."""
 
@@ -183,18 +227,23 @@ class PeakTracker:
         return self
 
     def _count_commits(self):
+        import threading
+
         from kaminpar_tpu_torch.ops import lp_kernels
 
         self.commit_calls = collections.Counter()
         self.commit_hubs = collections.Counter()  # the most movers on one target
         commit = lp_kernels.commit_moves
         self._saved.append((lp_kernels, "commit_moves", commit))
+        lock = threading.Lock()  # extension jobs commit from a thread pool
 
         def counted(*args, **kwargs):
             L = kwargs["num_labels"] if "num_labels" in kwargs else args[6]
             key = (int(args[1].shape[0]), int(L))
-            self.commit_calls[key] += 1
-            self.commit_hubs[key] = max(self.commit_hubs[key], commit_movers(args, kwargs)[1])
+            hub = commit_movers(args, kwargs)[1]
+            with lock:
+                self.commit_calls[key] += 1
+                self.commit_hubs[key] = max(self.commit_hubs[key], hub)
             return commit(*args, **kwargs)
 
         lp_kernels.commit_moves = counted
@@ -462,8 +511,9 @@ def phase_kernels(work, device, k: int):
     bound_ms, bound_by, old_bound_ms = pass_bounds(
         buckets, table_bytes(n_pad, timed["L"], timed["maxw_len"]))
     rate = dict(
-        kernel="lp_rate", what="one rating pass over all buckets of the finest graph, "
-        "clustering instantiation", kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+        kernel="lp_rate", what="one rating pass over all buckets of the default path's "
+        "finest graph, clustering instantiation", n=n_pad, L=timed["L"],
+        kernel_ms=cuda_time_ms(kernel_pass, iters=20),
         host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
         plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, old_bound_ms=old_bound_ms, library_ms=None,
@@ -937,9 +987,11 @@ def phase_off_vs_finest(g, scale: int, k: int, eps: float):
 
 
 def phase_round_reference(device):
-    """One LP clustering round and one balancer round through the wrappers:
-    the kernels on the card against the plain versions on the CPU, with the
-    same draws (a small graph: the CPU side is slow)."""
+    """One LP clustering round, one balancer round, one underload round
+    and one group-restricted balancer round (on the group-masked graph)
+    through the wrappers: the kernels on the card against the plain
+    versions on the CPU, with the same draws (a small graph: the CPU side
+    is slow)."""
     import torch
 
     from kaminpar_tpu_torch.graph import generators
@@ -978,9 +1030,41 @@ def phase_round_reference(device):
                                    max_bw.to(device), k=k)
     if max_abs_err(bref, bout):
         raise AssertionError("balancer round on the card != plain round on the CPU")
+
+    # an underload round (minimums 3% under the mean, one block nearly
+    # empty) and a grouped balancer round on the group-masked graph, as
+    # device extension runs it (8 blocks in groups of 2)
+    k = 8
+    part = torch.zeros(pv.n_pad, dtype=torch.int32)
+    part[: pv.n] = torch.randint(0, k - 1, (pv.n,), generator=gen, dtype=torch.int32)
+    W = g.total_node_weight
+    max_bw = torch.full((k,), int(W / k * 1.03) + 1, dtype=torch.int32)
+    min_bw = torch.full((k,), int(W / k * 0.97), dtype=torch.int32)
+    udraws = balancer.draw_balance_round(gen, bv, pv.n_pad)
+    uref = balancer._underload_round(part, udraws, bv, pv.node_w, max_bw, min_bw, k=k)
+    uout = balancer._underload_round(part.to(device), to(udraws), dbv, dpv.node_w,
+                                     max_bw.to(device), min_bw.to(device), k=k)
+    if max_abs_err(uref, uout):
+        raise AssertionError("underload round on the card != plain round on the CPU")
+    group_of = torch.arange(k, dtype=torch.int32) // 2
+    comm = group_of[part[: pv.n].long()]
+    mg, dmg = g.community_masked(comm), dg.community_masked(comm.to(device))
+    mbv = mg.bucketed()
+    gdraws = balancer.draw_balance_round(gen, mbv, pv.n_pad)
+    part[: pv.n] = torch.where(part[: pv.n] % 2 == 1, part[: pv.n] - 1, part[: pv.n])
+    gref = balancer._balance_round(part, gdraws, mbv, pv.node_w, max_bw, k=k,
+                                   group_of=group_of)
+    gout = balancer._balance_round(part.to(device), to(gdraws), dmg.bucketed(),
+                                   dmg.padded().node_w, max_bw.to(device), k=k,
+                                   group_of=group_of.to(device))
+    if max_abs_err(gref, gout):
+        raise AssertionError("grouped balancer round on the card != plain round on the CPU")
     log(f"round reference: rmat_graph(14, 16, seed=3): one LP round (moved "
-        f"{int(out.num_moved)}) and one balancer round (moved {int(bout[1][0])}) on the "
-        f"card equal the plain rounds on the CPU")
+        f"{int(out.num_moved)}), one balancer round (moved {int(bout[1][0])}), one "
+        f"underload round (moved {int(uout[1][0])}) and one grouped balancer round (moved "
+        f"{int(gout[1][0])}) on the card equal the plain rounds on the CPU")
+    if min(int(uout[1][0]), int(gout[1][0])) <= 0:
+        raise AssertionError("the underload or grouped round moved nothing")
 
 
 def check_pool_served(pool: dict, path: str) -> None:
@@ -1109,14 +1193,24 @@ def phase_pool(cap, device):
     return info
 
 
-def phase_main_path(graph, k: int, eps: float):
+def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bound: float,
+                     capture=None):
+    """``KaMinPar(preset).compute_partition(k)`` on the card, with the launch
+    counters and pool stats set to 0 just before and read just after and
+    the peaks tracked (and ``capture`` entered, if given); logs the path's
+    line and checks it: feasible, all k blocks used, the cut below
+    ``cut_bound`` x a random partition's, both dense-path kernels run and
+    every bisection on the device pool.  Returns (line, solver, partition)."""
+    import contextlib
+
     import torch
 
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.ops import bipartition, lp_kernels
-    solver = kp.KaMinPar("default")  # no device: cuda:0
+
+    solver = kp.KaMinPar(preset)  # no device: cuda:0
     solver.set_graph(graph)
-    with PeakTracker() as mem, CoarsestCapture() as cap:
+    with PeakTracker() as mem, capture or contextlib.nullcontext():
         lp_kernels.reset_launches()
         bipartition.reset_pool_stats()
         t0 = time.perf_counter()
@@ -1131,25 +1225,240 @@ def phase_main_path(graph, k: int, eps: float):
     feasible = bool(p.is_feasible())
     total_ew = graph.total_edge_weight // 2
     part_info = solver.last_partitioner
-    info = dict(phase="main_path", n=graph.n, m=graph.m, k=k, epsilon=eps, cut=cut,
+    info = dict(phase=phase, n=graph.n, m=graph.m, k=k, epsilon=eps, cut=cut,
                 random_cut_expected=int(total_ew * (1 - 1 / k)), feasible=feasible,
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
                 wall_s=wall, peak_bytes=mem.peak, peak_outside_bytes=mem.outside,
                 peak_calls=mem.calls, levels=part_info.num_levels,
                 coarsest=part_info.coarsest, phase_s=part_info.phase_seconds,
                 extension_jobs=part_info.extension_jobs, pool=pool, launches=launches,
-                commit_calls=mem.commit_log("default"))
+                commit_calls=mem.commit_log(preset))
     log(json.dumps(info))
-    check_pool_served(pool, "default")
+    check_pool_served(pool, preset)
     if not feasible:
-        raise AssertionError("main path partition is infeasible")
+        raise AssertionError(f"{preset} partition is infeasible")
     if part.shape != (graph.n,) or bw.min() <= 0:
-        raise AssertionError("main path partition does not use all k blocks")
-    if cut >= 0.95 * total_ew * (1 - 1 / k):
-        raise AssertionError("main path cut is not clearly below a random partition's")
+        raise AssertionError(f"{preset} partition does not use all k blocks")
+    if cut >= cut_bound * total_ew * (1 - 1 / k):
+        raise AssertionError(f"{preset} cut is not clearly below a random partition's")
     if launches["lp_rate"] <= 0 or launches["lp_commit"] <= 0:
-        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+        raise AssertionError(f"a kernel did not run on the {preset} path: {launches}")
+    return info, solver, part
+
+
+def phase_main_path(graph, k: int, eps: float):
+    cap = CoarsestCapture()
+    info, _, _ = drive_dense_path("default", "main_path", graph, k, eps, 0.95, cap)
     return info, cap
+
+
+def work_partition(graph, part, k: int):
+    """The path's partition restricted to the graph the deep partitioner
+    ran on (isolated nodes stripped, as ``finest_graph`` strips them)."""
+    from kaminpar_tpu_torch.graph.isolated import strip_isolated_csr
+
+    stripped = strip_isolated_csr(graph.host_row_ptr(), lambda: graph.col_idx.numpy(),
+                                  graph.node_w.numpy(), graph.n, k)
+    return part if stripped is None else part[stripped[0]]
+
+
+def phase_largek_path(graph, k: int, eps: float):
+    """``KaMinPar("largek").compute_partition(k)`` on the graph, as the
+    default path (``drive_dense_path``, cut bound ``LARGE_K_CUT_BOUND``);
+    device extension must have fired.  Logs the phase split; returns the
+    path's line, its partition and block caps."""
+    info, solver, part = drive_dense_path("largek", "largek_path", graph, k, eps,
+                                          LARGE_K_CUT_BOUND)
+    log("largek split (s): " + ", ".join(
+        f"{key} {val:.3f}" for key, val in info["phase_s"].items()))
+    if info["extension_jobs"]["device"] <= 0:
+        raise AssertionError("device extension did not fire on the largek path")
+    return info, part, solver.last_partition.max_block_weights
+
+
+def phase_largek_kernels(work, part, max_bw, device, k: int):
+    """Kernels #1 and #3 on the largek path's own data at ``L = k``: its
+    final partition as labels on its finest graph, caps as ``LPRefiner``
+    builds them and a refinement round's draws (active_prob 1.0, no tie
+    moves).  The rating kernel against its plain version on every bucket
+    and timed as one pass; the commit on the rated moves against both
+    plain auctions, twice, and timed."""
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.ops import bucketed_gains, lp
+
+    pv, bv = work.padded(), work.bucketed()
+    L = lp.num_labels_bucket(k)
+    labels = pv.pad_node_array(torch.as_tensor(part).to(device=device, dtype=torch.int32), 0)
+    state = lp.init_state(labels, pv.node_w, L)
+    caps = torch.zeros(L, dtype=torch.int32, device=device)
+    caps[:k] = torch.as_tensor(np.asarray(max_bw), dtype=torch.int32)
+    gen = torch.Generator(device=device).manual_seed(12)
+    draws = lp.draw_lp_round(gen, bv, pv.n_pad)
+    flags = dict(external_only=False, respect_caps=True, tie_break="uniform")
+    args = (labels, pv.node_w, state.label_weights, caps)
+    err = 0
+    for i, (b, tie) in enumerate(zip(bv.buckets, draws.ties)):
+        ref = bucketed_gains._bucket_moves(labels, b, pv.node_w, state.label_weights, caps,
+                                           tie, **flags)
+        err = max(err, max_abs_err(ref, rate_dense(*args, bv, i, tie, **flags)))
+        if err:
+            raise AssertionError(f"rating kernel != plain at L = {L}, w={b.cols.shape[1]}")
+    log(f"  rate refine L={L} (largek path data): equal on {len(bv.buckets)} buckets")
+
+    def kernel_pass():
+        for i, tie in enumerate(draws.ties):
+            rate_dense(*args, bv, i, tie, **flags)
+
+    def plain_pass():
+        for b, tie in zip(bv.buckets, draws.ties):
+            bucketed_gains._bucket_moves(labels, b, pv.node_w, state.label_weights, caps,
+                                         tie, **flags)
+
+    shapes = [tuple(b.cols.shape) for b in bv.buckets]
+    buckets = [(w, R, real, dense_bucket_bytes(R, real, w), rating_ops(real, w),
+                dense_bucket_bytes_all_rows(R, w), bitonic_ops(R, w))
+               for (R, w), real in zip(shapes, bv.real_rows)]
+    bound_ms, bound_by, _ = pass_bounds(buckets, table_bytes(pv.n_pad, L, L))
+    rate = dict(
+        kernel="lp_rate", what=f"one rating pass over all buckets of the largek path's "
+        f"finest graph, refinement instantiation at L = {L}, its final partition",
+        n=pv.n_pad, L=L, kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+        host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
+        plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, max_abs_err=err)
+    log(json.dumps(rate))
+    target, tconn, own, _ = lp.best_moves(labels, bv, pv.node_w, state.label_weights, caps,
+                                          draws.ties, draws.heavy_tie, **flags)
+    call = (state, target, tconn, own, pv.node_w, caps, L, draws.prio, None, None)
+    err = check_commit(f"refine (path data), largek finest level, L={L}", call,
+                       REFINE_OPTS, (True, False))
+    commit = time_commit(call, err, REFINE_OPTS, f"the largek path's finest level, "
+                         f"refinement instantiation (L = {L}), its final partition and "
+                         "rated moves")
+    return rate, commit
+
+
+def phase_min_weights(g, scale: int, k: int, eps: float):
+    """``KaMinPar("default").compute_partition(k, eps, min_epsilon=eps)``
+    on the card: feasible and min-feasible.  Returns its line."""
+    import torch
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.ops import lp_kernels
+
+    solver = kp.KaMinPar("default")
+    solver.set_graph(g)
+    lp_kernels.reset_launches()
+    t0 = time.perf_counter()
+    solver.compute_partition(k, epsilon=eps, min_epsilon=eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lp_kernels.LAUNCHES)
+    p = solver.last_partition
+    bw = p.block_weights()
+    info = dict(phase="min_weights", graph=f"rmat_graph({scale}, 16, seed=1)", k=k,
+                epsilon=eps, min_epsilon=eps, wall_s=wall, cut=int(p.edge_cut()),
+                feasible=bool(p.is_feasible()), min_feasible=bool(p.is_min_feasible()),
+                max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
+                required_min=int(p.min_block_weights.min()),
+                allowed_max=int(p.max_block_weights.max()), launches=launches)
+    log(json.dumps(info))
+    if not (info["feasible"] and info["min_feasible"]):
+        raise AssertionError("the minimum-weight partition is not feasible and min-feasible")
+    return info
+
+
+def phase_pooled_serial(scale: int, k: int):
+    """``KaMinPar("largek")`` into ``k`` blocks on ``rmat_graph(scale)`` with
+    device extension from 2,048 nodes, the extension jobs on a pool of
+    ``host_pool_workers`` threads (at most the core count) and on one
+    thread (the card's own width, ``platform.extension_workers``): equal
+    partitions on the card; both walls timed."""
+    import numpy as np
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.utils import platform
+
+    g = generators.rmat_graph(scale, 16, seed=1)
+    width = platform.extension_workers
+    info = dict(phase="pooled_serial", graph=f"rmat_graph({scale}, 16, seed=1)",
+                preset="largek", k=k, device_extension_n=2048,
+                pooled_workers=platform.host_pool_workers(1 << 20))
+    parts = {}
+    for name, workers in (("pooled", lambda jobs, device: platform.host_pool_workers(jobs)),
+                          ("serial", lambda jobs, device: 1)):
+        platform.extension_workers = workers
+        try:
+            solver = kp.KaMinPar("largek")
+            solver.ctx.initial_partitioning.device_extension_n = 2048
+            solver.set_graph(g)
+            t0 = time.perf_counter()
+            parts[name] = solver.compute_partition(k)
+            info[name] = dict(wall_s=time.perf_counter() - t0,
+                              cut=int(solver.last_partition.edge_cut()),
+                              feasible=bool(solver.last_partition.is_feasible()),
+                              extension_jobs=solver.last_partitioner.extension_jobs,
+                              phase_s=solver.last_partitioner.phase_seconds)
+        finally:
+            platform.extension_workers = width
+    info["equal"] = bool(np.array_equal(parts["pooled"], parts["serial"]))
+    log(json.dumps(info))
+    if not info["equal"]:
+        raise AssertionError("the pooled and the serial extension partitions differ")
+    if info["pooled"]["extension_jobs"]["device"] <= 0:
+        raise AssertionError("device extension did not fire in the pooled = serial phase")
+
+
+def phase_pool_width(device):
+    """The extension pool's width on the card: one device-pool bisection of
+    a small graph (``rmat_graph(10, 8, seed=2)``, as small as the
+    subgraphs the k = 1024 extension bisects) timed alone, with the device
+    events it launches and their device time; then 8 such bisections on
+    one thread and on eight."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.context import InitialPartitioningContext
+    from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.ops import bipartition as bip
+    from kaminpar_tpu_torch.partitioning.kway import graph_to_host
+
+    g = generators.rmat_graph(10, 8, seed=2)
+    h = graph_to_host(g)
+    ipc = InitialPartitioningContext()
+    half = int(h.node_w.sum()) // 2 + 10
+    mw = np.array([half, half])
+
+    def bisect(seed):
+        with torch.cuda.device(device):
+            return bip.pool_bipartition_device(h.row_ptr, h.col_idx, h.node_w, h.edge_w, mw,
+                                               seed, ipc, 2, device=device)
+
+    bisect(1)
+    walls = []
+    for seed in range(3):
+        t0 = time.perf_counter()
+        bisect(seed)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(walls)[1]
+    events, device_ms = device_activity(lambda: bisect(3))
+    by_workers = {}
+    for workers in (1, 8):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(bisect, range(8)))
+        torch.cuda.synchronize()
+        by_workers[workers] = time.perf_counter() - t0
+    log(json.dumps(dict(phase="pool_width", graph="rmat_graph(10, 8, seed=2)", n=g.n,
+                        n_pad=g.padded().n_pad, ms=ms, walls_ms=walls, device_events=events,
+                        device_ms=device_ms,
+                        device_idle_share=None if device_ms is None else 1 - device_ms / ms,
+                        seconds_8_bisections_by_workers=by_workers)))
 
 
 def phase_small_reference():
@@ -1186,7 +1495,11 @@ def phase_small_reference():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=int, default=22, help="RMAT scale (2^scale nodes)")
+    ap.add_argument("--scale", type=int, default=22,
+                    help="RMAT scale (2^scale nodes) of the largek path")
+    ap.add_argument("--path-scale", type=int, metavar="S",
+                    help="RMAT scale of the terapart path and of the dense kernels' "
+                    "shapes (default: --scale minus 2)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, check and time the kernels (phases 1-3 and the kernel "
                     "part of 6) and stop: no path runs, no result line")
@@ -1211,13 +1524,14 @@ def main() -> int:
 
     def rmat(scale):
         t0 = time.perf_counter()
-        g = generators.rmat_graph(scale, 16, seed=1)
+        g = generators.rmat_graph(scale, 16, seed=1, device=device)
         log(f"graph: rmat_graph({scale}, 16, seed=1) n={g.n} m={g.m} "
-            f"({time.perf_counter() - t0:.1f} s on the host)")
+            f"({time.perf_counter() - t0:.1f} s, built on the card)")
         return g
 
-    graph = rmat(args.scale)
     device = torch.device("cuda", 0)
+    path_scale = args.scale - 2 if args.path_scale is None else args.path_scale
+    graph = rmat(path_scale)
     terapart = kp.KaMinPar("terapart")  # no device: cuda:0
     t0 = time.perf_counter()
     terapart.set_graph(graph)  # compresses on the host
@@ -1245,36 +1559,55 @@ def main() -> int:
     del p
     del terapart
     torch.cuda.empty_cache()
-    phase_off_vs_finest(rmat(args.scale - 4), args.scale - 4, OFF_FINEST_K, EPSILON)
-
     work = finest_graph(graph, K, device)
     rate, commit_default = phase_kernels(work, device, K)
     commit["instances"].insert(1, commit_default)
-    del work
+    del work, graph
     torch.cuda.empty_cache()
+
+    small = rmat(args.scale - 4)
+    phase_off_vs_finest(small, args.scale - 4, OFF_FINEST_K, EPSILON)
     phase_round_reference(device)
-    info, coarsest = phase_main_path(graph, K, EPSILON)
-    del graph
+    info, coarsest = phase_main_path(small, K, EPSILON)
     phase_pool(coarsest, device)
+    torch.cuda.empty_cache()
+
+    graph = rmat(args.scale)
+    linfo, lpart, lcaps = phase_largek_path(graph, LARGE_K, EPSILON)
+    torch.cuda.empty_cache()
+    work = finest_graph(graph, LARGE_K, device)
+    rate_l, commit_l = phase_largek_kernels(work, work_partition(graph, lpart, LARGE_K), lcaps,
+                                            device, LARGE_K)
+    rate["instances"] = [rate.copy(), rate_l]
+    commit["instances"].append(commit_l)
+    del work, graph
+    torch.cuda.empty_cache()
+    minfo = phase_min_weights(small, args.scale - 4, K, EPSILON)
+    del small
+    phase_pooled_serial(POOLED_SERIAL_SCALE, POOLED_SERIAL_K)
+    phase_pool_width(device)
     phase_small_reference()
 
+    paths = dict(terapart=tinfo, default=info, largek=linfo, min_weights=minfo)
     kernels = []
-    for meas, source, replaces, path in (
-            (rate, RATE_SOURCE, RATE_REPLACES, info),
-            (rate_c, RATE_SOURCE, RATE_COMPRESSED_REPLACES, tinfo),
-            (commit, COMMIT_SOURCE, COMMIT_REPLACES, tinfo)):
+    for meas, source, replaces in (
+            (rate, RATE_SOURCE, RATE_REPLACES),
+            (rate_c, RATE_SOURCE, RATE_COMPRESSED_REPLACES),
+            (commit, COMMIT_SOURCE, COMMIT_REPLACES)):
+        by_path = {name: path["launches"][meas["kernel"]] for name, path in paths.items()
+                   if path["launches"][meas["kernel"]]}
         kernels.append(dict(
             name=meas["kernel"], route="cuda", source=source, replaces=replaces,
-            status="ported", launches=path["launches"][meas["kernel"]],
+            status="ported", launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=meas["max_abs_err"], ms=meas["kernel_ms"],
             plain_ms=meas["plain_ms"], bound_ms=meas["bound_ms"],
             bound_by=meas["bound_by"], library_ms=meas["library_ms"],
         ))
-        if "instances" in meas:  # the commit: every instance timed
+        if "instances" in meas:  # every instance timed
             kernels[-1]["instances"] = [
                 {key: inst[key] for key in ("what", "n", "L", "movers", "largest_target",
                                             "kernel_ms", "host_paced_ms", "plain_ms",
-                                            "bound_ms")}
+                                            "bound_ms") if key in inst}
                 for inst in meas["instances"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,14 +1,19 @@
 """Cluster coarsener: clustering + contraction hierarchy (counterpart of
-``kaminpar_tpu/coarsening/cluster_coarsener.py`` without communities).
+``kaminpar_tpu/coarsening/cluster_coarsener.py``).
 
 With a ``DeviceCompressedView`` in place of the finest CSR (the TeraPart
 tier under ``device_decode="finest"``), level 0 is clustered and contracted
 straight off the compressed stream; the finest CSR is decoded on the
 device only when uncoarsening comes back to level 0.
+
+With communities (``set_communities``, device extension's current
+blocks), no cluster spans two communities: the clustering runs on the
+community-masked graph, and every level carries its nodes' communities.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -19,6 +24,7 @@ from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph
 from ..graph.device_compressed import DeviceCompressedView
 from ..ops.contraction import contract_clustering, contract_compressed, project_partition
+from ..ops.segment import segment_max
 from ..utils.logger import Logger, OutputLevel
 from .lp_clusterer import LPClustering
 from .max_cluster_weights import compute_max_cluster_weight
@@ -28,6 +34,7 @@ from .max_cluster_weights import compute_max_cluster_weight
 class CoarseLevel:
     graph: CSRGraph  # the coarse graph produced at this level
     coarse_of: torch.Tensor  # fine node -> coarse node
+    communities: Optional[torch.Tensor] = None  # community per coarse node
 
 
 class ClusterCoarsener:
@@ -48,6 +55,27 @@ class ClusterCoarsener:
             src = graph if graph is not None else compressed_view.cg
             weighted = not src.has_uniform_edge_weights()
         self.clusterer = LPClustering(ctx.coarsening.lp, weighted_graph=weighted)
+        self.input_communities: Optional[torch.Tensor] = None
+        self._masked_clusterer: Optional[LPClustering] = None
+
+    def set_communities(self, communities: torch.Tensor) -> None:
+        """Restrict clustering to ``communities`` ((n,) int32 per input
+        node).  The clustering then rates the community-masked graph
+        (cross-community edges at weight 0, and LP adopts only labels
+        rated above 0) without the isolated-node and two-hop passes, which
+        merge nodes regardless of edges; contraction keeps the true
+        weights.  Not for a compressed-view input, whose stream carries no
+        per-edge weights to mask."""
+        if self.input_cview is not None:
+            raise ValueError("communities cannot restrict the clustering of a "
+                             "compressed view")
+        self.input_communities = torch.as_tensor(
+            communities, device=self.input_graph.device).to(torch.int32)
+        self._masked_clusterer = LPClustering(
+            dataclasses.replace(self.ctx.coarsening.lp, cluster_isolated_nodes=False,
+                                cluster_two_hop_nodes=False),
+            weighted_graph=self.clusterer.weighted_graph,
+        )
 
     def release_input_graph(self, compressed: CompressedGraph) -> None:
         """Drop the finest level once coarse levels exist: while the
@@ -84,6 +112,13 @@ class ClusterCoarsener:
         return self.input_cview.n
 
     @property
+    def current_communities(self) -> Optional[torch.Tensor]:
+        """The current level's communities per node, or None."""
+        if self.hierarchy:
+            return self.hierarchy[-1].communities
+        return self.input_communities
+
+    @property
     def num_levels(self) -> int:
         return len(self.hierarchy)
 
@@ -104,7 +139,12 @@ class ClusterCoarsener:
         if sf > 0:
             avg_w = src.total_node_weight / max(n_cur, 1)
             max_cw = min(max_cw, max(int(sf * avg_w), 1))
-        labels = self.clusterer.compute_clustering(src, max_cw)
+        comm = self.current_communities
+        if comm is None:
+            labels = self.clusterer.compute_clustering(src, max_cw)
+        else:
+            labels = self._masked_clusterer.compute_clustering(
+                src.community_masked(comm), max_cw)
         contract = contract_compressed if off_stream else contract_clustering
         coarse, coarse_of = contract(src, labels)
         Logger.log(
@@ -114,7 +154,10 @@ class ClusterCoarsener:
         )
         if 1.0 - coarse.n / max(n_cur, 1) < self.ctx.coarsening.convergence_threshold:
             return False
-        self.hierarchy.append(CoarseLevel(coarse, coarse_of))
+        # Clusters never span communities: any member's community is the
+        # cluster's.
+        coarse_comm = None if comm is None else segment_max(comm, coarse_of, coarse.n)
+        self.hierarchy.append(CoarseLevel(coarse, coarse_of, coarse_comm))
         return True
 
     def coarsen(self, k: int, epsilon: float, target_n: int) -> CSRGraph:

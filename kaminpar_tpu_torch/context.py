@@ -1,7 +1,8 @@
 """Configuration tree of the port.
 
 A trimmed copy of ``kaminpar_tpu/context.py``: only the dataclasses and
-fields the ``default``, ``fast`` and ``terapart`` presets read.  Defaults are the JAX
+fields the ``default``, ``fast``, ``terapart`` and ``largek`` presets
+read.  Defaults are the JAX
 package's.  There is no ``lp_kernel`` knob: the LP round runs the CUDA
 kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
 (``ops/lp_kernels.py``).  The initial bipartitioning pool is the host pool.
@@ -10,6 +11,7 @@ kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -105,6 +107,15 @@ class InitialPartitioningContext:
     # a nested deep pipeline; best of ``nested_extension_reps`` attempts.
     nested_extension_n: int = 4096
     nested_extension_reps: int = 2
+    # Device extension (``partitioning/extension.py``): on graphs of at
+    # least ``device_extension_n`` nodes, one restricted nested multilevel
+    # over all blocks, its coarsest graph holding about
+    # ``device_extension_cpb`` coarse nodes per new block; the best of
+    # ``device_extension_reps`` attempts by cut.
+    device_extension: bool = False
+    device_extension_n: int = 1 << 15
+    device_extension_cpb: int = 320
+    device_extension_reps: int = 1
     # Up to this size, also run the flat pool and keep the better result.
     flat_pool_fallback_n: int = 2048
 
@@ -130,14 +141,26 @@ class RefinementContext:
 class PartitionContext:
     k: int = 2
     epsilon: float = 0.03
+    # Minimum block-weight imbalance; 0 disables minimum weights.
+    min_epsilon: float = 0.0
     max_block_weights: Optional[object] = None  # (k,) int64, set by setup()
+    min_block_weights: Optional[object] = None  # (k,) int64 or None
 
-    def setup(self, total_node_weight: int, k: int, epsilon: float) -> None:
+    def setup(self, total_node_weight: int, k: int, epsilon: float,
+              min_epsilon: float = 0.0) -> None:
         self.k = int(k)
         self.epsilon = float(epsilon)
+        self.min_epsilon = float(min_epsilon)
         perfect = (total_node_weight + k - 1) // k
         max_bw = int((1.0 + epsilon) * perfect)
         self.max_block_weights = np.full(k, max(max_bw, perfect + 1), dtype=np.int64)
+        if min_epsilon > 0.0:
+            # ceil((1 - min_eps) * perfect), clamped so that k * min_bw <= W
+            # stays satisfiable (perfect is rounded up).
+            min_bw = min(math.ceil((1.0 - min_epsilon) * perfect), total_node_weight // k)
+            self.min_block_weights = np.full(k, min_bw, dtype=np.int64)
+        else:
+            self.min_block_weights = None
 
 
 @dataclass

@@ -164,3 +164,22 @@ def build_bucketed_view(row_ptr: np.ndarray, col_idx: torch.Tensor,
         n=n,
         real_rows=tuple(real_rows),
     )
+
+
+def mask_bucketed_view(bv: BucketedView, comm: torch.Tensor, n_pad: int) -> BucketedView:
+    """``bv`` with the weight of every slot whose two end nodes lie in
+    different communities (``comm``: (n,) int32 per real node) set to 0:
+    the layout ``build_bucketed_view`` gives for the masked edge weights,
+    regathered through the same plan.  Pad slots and rows keep weight 0
+    whatever community their nodes take here."""
+    dev = bv.gather_idx.device
+    cp = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    cp[: comm.shape[0]] = comm
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    buckets = tuple(
+        b._replace(wgts=torch.where(cp[b.nodes][:, None] == cp[b.cols], b.wgts, zero))
+        for b in bv.buckets
+    )
+    h = bv.heavy
+    heavy = h._replace(wgts=torch.where(cp[h.nodes[h.row]] == cp[h.cols], h.wgts, zero))
+    return bv._replace(buckets=buckets, heavy=heavy)

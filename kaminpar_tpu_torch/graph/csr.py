@@ -116,6 +116,23 @@ class CSRGraph:
         g._compressed_view = None
         return g
 
+    def community_masked(self, comm: torch.Tensor) -> "CSRGraph":
+        """This graph with every edge between two communities (``comm``:
+        (n,) int32 per node) at weight 0.  It shares this graph's arrays
+        and host ``row_ptr``, and its bucketed layout is this graph's with
+        the slot weights masked (``bucketed.mask_bucketed_view``), so it
+        costs no readback and no new plan."""
+        from .bucketed import mask_bucketed_view
+
+        g = CSRGraph.__new__(CSRGraph)
+        g.__dict__.update(self.__dict__)
+        keep = comm[self.edge_u] == comm[self.col_idx]
+        g.edge_w = torch.where(keep, self.edge_w, torch.zeros((), dtype=IDX, device=self.device))
+        g._padded = None
+        g._bucketed = mask_bucketed_view(self.bucketed(), comm, self.padded().n_pad)
+        g._compressed_view = None
+        return g
+
     def host_row_ptr(self) -> np.ndarray:
         if self._host_row_ptr is None:
             self._host_row_ptr = self.row_ptr.cpu().numpy().astype(np.int64)

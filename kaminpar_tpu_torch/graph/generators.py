@@ -2,13 +2,16 @@
 
 A copy of ``kaminpar_tpu/graph/generators.py``: the same seed gives the
 same graph as there, so a test can hand one input to both packages.
+:func:`rmat_graph` can also build that graph with torch on a device
+(``device=``), which is minutes faster at scale 22 on a GPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .csr import CSRGraph, from_edge_list
+from .csr import CSRGraph, from_edge_list, from_numpy_csr
 
 
 def star_graph(n_leaves: int, **kw) -> CSRGraph:
@@ -45,11 +48,52 @@ def rmat_edges(scale: int, edge_factor: int = 16, a: float = 0.57,
 
 
 def rmat_graph(scale: int, edge_factor: int = 16, a: float = 0.57,
-               b: float = 0.19, c: float = 0.19, seed: int = 0, **kw) -> CSRGraph:
+               b: float = 0.19, c: float = 0.19, seed: int = 0, device=None,
+               **kw) -> CSRGraph:
     """Graph500-style RMAT: 2**scale nodes, ~edge_factor * 2**scale
-    undirected edges before deduplication."""
-    edges = rmat_edges(scale, edge_factor, a, b, c, seed)
-    return from_edge_list(1 << scale, edges, **kw)
+    undirected edges before deduplication.
+
+    With ``device``, the same numpy draws are turned into the edge list,
+    symmetrized, sorted and merged by torch on that device; the result is
+    the same graph, on the host (``from_edge_list``'s options then do not
+    apply)."""
+    if device is None:
+        edges = rmat_edges(scale, edge_factor, a, b, c, seed)
+        return from_edge_list(1 << scale, edges, **kw)
+    if kw:
+        raise ValueError(f"rmat_graph(device=...) takes no from_edge_list options: {sorted(kw)}")
+    return _rmat_graph_on(torch.device(device), scale, edge_factor, a, b, c, seed)
+
+
+def _rmat_graph_on(device: torch.device, scale: int, edge_factor: int, a: float,
+                   b: float, c: float, seed: int) -> CSRGraph:
+    """:func:`rmat_edges` followed by :func:`from_edge_list` (unit weights,
+    symmetrized, duplicates merged), computed on ``device``."""
+    n = 1 << scale
+    num_edges = edge_factor * n
+    rng = np.random.default_rng(seed)
+    u = torch.zeros(num_edges, dtype=torch.int64, device=device)
+    v = torch.zeros(num_edges, dtype=torch.int64, device=device)
+    ab, abc = a + b, a + b + c
+    for _ in range(scale):
+        r = torch.from_numpy(rng.random(num_edges)).to(device)
+        right = r >= ab
+        down = (r >= a) & (r < ab) | (r >= abc)
+        u = (u << 1) | right.to(torch.int64)
+        v = (v << 1) | down.to(torch.int64)
+    del r, right, down
+    perm = torch.from_numpy(rng.permutation(n)).to(device)
+    u, v = perm[u], perm[v]
+    keep = u != v
+    u, v = u[keep], v[keep]
+    key = torch.cat([u * n + v, v * n + u])
+    del u, v, keep
+    key, w = torch.unique_consecutive(torch.sort(key).values, return_counts=True)
+    src = key // n
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    torch.cumsum(torch.bincount(src, minlength=n), 0, out=row_ptr[1:])
+    return from_numpy_csr(row_ptr.cpu().numpy(), (key - src * n).to(torch.int32).cpu().numpy(),
+                          None, w.to(torch.int32).cpu().numpy())
 
 
 def rgg2d_graph(n: int, radius: float | None = None, seed: int = 0, **kw) -> CSRGraph:

@@ -1,5 +1,6 @@
 """Partition quality metrics (counterpart of ``kaminpar_tpu/graph/metrics.py``):
-edge cut, block weights, imbalance, overload and feasibility."""
+edge cut, block weights, imbalance, overload and underload, and
+feasibility against maximum and minimum block weights."""
 
 from __future__ import annotations
 
@@ -43,3 +44,13 @@ def total_overload(graph: CSRGraph, partition, k: int, max_block_weights) -> int
 
 def is_feasible(graph: CSRGraph, partition, k: int, max_block_weights) -> bool:
     return total_overload(graph, partition, k, max_block_weights) == 0
+
+
+def total_underload(graph: CSRGraph, partition, k: int, min_block_weights) -> int:
+    """Sum of weight missing below the per-block minimums."""
+    bw = block_weights(graph, partition, k)
+    return int(np.maximum(np.asarray(min_block_weights, dtype=np.int64) - bw, 0).sum())
+
+
+def is_min_feasible(graph: CSRGraph, partition, k: int, min_block_weights) -> bool:
+    return total_underload(graph, partition, k, min_block_weights) == 0

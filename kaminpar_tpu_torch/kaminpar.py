@@ -3,7 +3,9 @@
 
 It owns a graph and a :class:`Context`, sets up the block-weight limits,
 strips isolated nodes, runs the deep multilevel partitioner on its device
-and re-inserts the isolated nodes into the lightest blocks.  A compressed
+and re-inserts the isolated nodes into the lightest blocks; where that
+leaves a block below its minimum weight, the underload balancer repairs
+it on the whole graph.  A compressed
 graph (``set_graph(CompressedGraph)``, or any graph under a context with
 ``compression.enabled``, as the ``terapart`` preset sets) is partitioned
 from its compressed form: budgets come from its metadata and the isolated
@@ -28,6 +30,7 @@ from .graph.csr import CSRGraph, from_numpy_csr
 from .graph.isolated import assign_isolated_nodes, strip_isolated_csr
 from .graph.partitioned import PartitionedGraph
 from .presets import create_context_by_preset_name
+from .refinement.balancer import UnderloadBalancer
 from .utils import Logger, RandomState, log_result_line
 
 
@@ -83,17 +86,19 @@ class KaMinPar:
 
     def compute_partition(self, k: int, epsilon: float = 0.03,
                           max_block_weights: Optional[Sequence[int]] = None,
+                          min_epsilon: float = 0.0,
                           min_block_weights: Optional[Sequence[int]] = None) -> np.ndarray:
         """Partition into k blocks; returns the (n,) int32 block array.
 
         Block weight limit: ``max((1+epsilon)*ceil(W/k), ceil(W/k) +
         max_node_weight)`` per block, or the absolute ``max_block_weights``.
+        Minimum block weight: ``min(ceil((1-min_epsilon)*ceil(W/k)), W // k)``
+        per block when ``min_epsilon`` > 0, or the absolute
+        ``min_block_weights``; the underload balancer enforces it.
         """
         graph = self.graph if self.graph is not None else self.compressed_graph
         if graph is None:
             raise ValueError("call set_graph or copy_graph first")
-        if min_block_weights is not None:
-            raise NotImplementedError("minimum block weights are not ported yet")
         ctx = self.ctx
         if k <= 0:
             raise ValueError("k must be positive")
@@ -109,17 +114,19 @@ class KaMinPar:
             # nested pipelines whose subgraphs carry accumulated weights.
             if pinned is None and graph.m > 0:
                 lp_ctx.weighted_mode = not graph.has_uniform_edge_weights()
-            return self._partition(graph, k, epsilon, max_block_weights, start)
+            return self._partition(graph, k, epsilon, max_block_weights, min_epsilon,
+                                   min_block_weights, start)
         finally:
             lp_ctx.weighted_mode = pinned
 
     def _partition(self, graph: Union[CSRGraph, CompressedGraph], k: int,
-                   epsilon: float, max_block_weights, start: float) -> np.ndarray:
+                   epsilon: float, max_block_weights, min_epsilon: float,
+                   min_block_weights, start: float) -> np.ndarray:
         ctx = self.ctx
         total_node_weight = graph.total_node_weight
         max_node_weight = (int(graph.node_w.max(initial=0))
                            if isinstance(graph, CompressedGraph) else graph.max_node_weight)
-        ctx.partition.setup(total_node_weight, k, epsilon)
+        ctx.partition.setup(total_node_weight, k, epsilon, min_epsilon)
         if max_block_weights is not None:
             max_bw = np.asarray(max_block_weights, dtype=np.int64)
             if max_bw.shape != (k,):
@@ -132,7 +139,15 @@ class KaMinPar:
             ctx.partition.max_block_weights = np.maximum(
                 ctx.partition.max_block_weights, perfect + max_node_weight
             )
+        if min_block_weights is not None:
+            min_bw = np.asarray(min_block_weights, dtype=np.int64)
+            if min_bw.shape != (k,):
+                raise ValueError(
+                    f"min_block_weights must have length k={k}, got {min_bw.shape}"
+                )
+            ctx.partition.min_block_weights = min_bw
         max_bw = np.asarray(ctx.partition.max_block_weights, dtype=np.int64)
+        min_bw = ctx.partition.min_block_weights
         if graph.n == 0:
             return np.zeros(0, dtype=np.int32)
 
@@ -143,13 +158,15 @@ class KaMinPar:
                                              device=self.device)
             p_graph = partitioner.partition()
             self.last_partitioner = partitioner
-            self._last = PartitionedGraph.create(p_graph.graph, k, p_graph.partition, max_bw)
+            self._last = PartitionedGraph.create(p_graph.graph, k, p_graph.partition, max_bw,
+                                                 min_bw)
             log_result_line(self._last.edge_cut(), self._last.imbalance(),
                             self._last.is_feasible(), k, time.perf_counter() - start)
             return self._last.partition.cpu().numpy().astype(np.int32)
 
         # Strip isolated nodes on the host; they go to the lightest blocks
-        # afterwards.
+        # afterwards.  The work graph is held to the whole graph's minimum
+        # block weights.
         row_ptr = graph.host_row_ptr()
         node_w = graph.node_w.cpu().numpy()
         stripped = strip_isolated_csr(row_ptr, lambda: graph.col_idx.cpu().numpy(),
@@ -168,16 +185,27 @@ class KaMinPar:
         p_graph = partitioner.partition()
         self.last_partitioner = partitioner
         work_part = p_graph.partition.cpu().numpy().astype(np.int32)
+        # Isolated nodes carry no edges: the work graph's cut is the cut.
+        cut = p_graph.edge_cut()
         if stripped is not None:
             part = assign_isolated_nodes(
                 graph.n, k, keep, isolated, work_part, new_nw, node_w, max_bw
             ).astype(np.int32)
         else:
             part = work_part
-        self._last = PartitionedGraph.create(graph, k, part, max_bw)
-        # Isolated nodes carry no edges: the work graph's cut is the cut.
-        log_result_line(p_graph.edge_cut(), self._last.imbalance(),
-                        self._last.is_feasible(), k, time.perf_counter() - start)
+        self._last = PartitionedGraph.create(graph, k, part, max_bw, min_bw)
+        if stripped is not None and not self._last.is_min_feasible():
+            # The work graph was held to minimums its own weight may not
+            # reach, so its underload balancer found no donor, and packing
+            # the isolated nodes into the lightest blocks can leave a block
+            # short.  On the whole graph the heavier blocks can donate.
+            whole = PartitionedGraph.create(graph.to(self.device), k, part, max_bw, min_bw)
+            whole = UnderloadBalancer(ctx.refinement.balancer).refine(whole)
+            part = whole.partition.cpu().numpy().astype(np.int32)
+            cut = whole.edge_cut()
+            self._last = PartitionedGraph.create(graph, k, part, max_bw, min_bw)
+        log_result_line(cut, self._last.imbalance(), self._last.is_feasible(), k,
+                        time.perf_counter() - start)
         return part
 
     @property

@@ -494,7 +494,8 @@ def count_host_bisection() -> None:
 
 def pool_stats_snapshot() -> dict:
     """Pool census: calls, lanes launched and asked for, feasible lanes,
-    wall seconds, host bisections, calls run method by method
+    wall seconds (summed over calls, which overlap where extension jobs
+    run on several threads), host bisections, calls run method by method
     (``chunked_calls``), and the two ratios."""
     with _stats_lock:
         snap = dict(_pool_stats)

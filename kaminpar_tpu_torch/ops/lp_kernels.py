@@ -18,7 +18,8 @@ Dispatch is by device: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version (``bucketed_gains._bucket_moves``,
 :func:`rate_compressed_bucket_plain`, ``lp._commit_moves``).  There is no
 fallback: a kernel that does not build or launch raises.  Each wrapper counts its kernel launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`, under a lock: the extension jobs launch from a thread
+pool.
 
 Build: ``nvcc`` compiles each source for ``sm_90a`` (all at once, one
 process per source) and links one shared library with a plain C
@@ -65,11 +66,18 @@ WARP_MAX_WIDTH = 64
 
 _lib = None
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -273,7 +281,7 @@ def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *
         _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(has), _stream_ptr(dev),
     )
     _raise_on(err, "kp_rate_bucket")
-    LAUNCHES["lp_rate"] += 1
+    _count_launch("lp_rate")
     return target, tconn, own_conn, has
 
 
@@ -330,7 +338,7 @@ def rate_compressed_bucket(labels, node_w, label_weights, max_label_weights,
         _ptr(has), _stream_ptr(dev),
     )
     _raise_on(err, "kp_rate_compressed_bucket")
-    LAUNCHES["lp_rate_compressed"] += 1
+    _count_launch("lp_rate_compressed")
     return target, tconn, own_conn, has
 
 
@@ -388,5 +396,5 @@ def commit_moves(state: "lp.LPState", target, tconn, own_conn, node_w,
         _stream_ptr(dev),
     )
     _raise_on(err, "kp_commit_moves")
-    LAUNCHES["lp_commit"] += 1
+    _count_launch("lp_commit")
     return lp.LPState(new_labels, new_weights, moved_count)

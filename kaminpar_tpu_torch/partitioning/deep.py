@@ -7,9 +7,12 @@ the bipartitioning pool, then uncoarsen: project, *extend* the partition
 towards k where the level carries more blocks (``compute_k_for_n``), and
 refine.  Extension splits each block's subgraph by recursive bipartitioning,
 or, for splits into four or more parts of subgraphs of at least
-``nested_extension_n`` nodes, with a nested deep pipeline.  Every bisection
-runs on the graph's device when ``ip_backend`` resolves to "device" (a CUDA
-graph under "auto"), else on the host.
+``nested_extension_n`` nodes, with a nested deep pipeline; the blocks' jobs
+run in a thread pool.  Under ``device_extension`` (the largek presets),
+levels of at least ``device_extension_n`` nodes are extended on the device
+instead (``partitioning/extension.py``).  Every bisection runs on the
+graph's device when ``ip_backend`` resolves to "device" (a CUDA graph
+under "auto"), else on the host.
 
 The input is a CSRGraph, or a ``CompressedGraph`` (the TeraPart tier).
 Under ``device_decode`` "finest"/"auto" a ``DeviceCompressedView`` stands
@@ -20,8 +23,10 @@ levels are worked on and decoded again at level 0.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -30,13 +35,15 @@ import torch
 from ..coarsening.cluster_coarsener import ClusterCoarsener
 from ..context import Context
 from ..factories import create_refiner
+from ..graph import metrics
 from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph, from_numpy_csr
 from ..graph.device_compressed import build_device_view
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import HostCSR, extract_all_subgraphs, recursive_bipartition
-from ..utils import RandomState
+from ..utils import RandomState, platform
 from ..utils.logger import Logger, OutputLevel
+from .extension import extend_partition_device
 from .kway import graph_to_host
 from .partition_utils import compute_k_for_n, intermediate_block_weights, split_offsets
 
@@ -44,11 +51,55 @@ from .partition_utils import compute_k_for_n, intermediate_block_weights, split_
 def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
                      ctx: Context, jobs: dict) -> np.ndarray:
     """Split every block of a cur_k-way partition so that the result has
-    new_k blocks; returns the (n,) int32 host partition.  The block
-    subgraphs are extracted on the host; block b's job runs under its own
-    seed, so the result does not depend on job order.  ``jobs`` accumulates
-    the count and seconds of both kinds of job (``bisections`` /
-    ``bisections_s`` and ``nested`` / ``nested_s``)."""
+    new_k blocks; returns the (n,) int32 host partition.  Graphs of at
+    least ``device_extension_n`` nodes take device extension when the
+    context asks for it (``partitioning/extension.py``: one restricted
+    nested multilevel over all blocks, the best of
+    ``device_extension_reps`` attempts by cut), all others the per-block
+    host jobs.  ``jobs`` accumulates the counts and seconds of both (see
+    :func:`new_job_stats`)."""
+    ipc = ctx.initial_partitioning
+    if ipc.device_extension and new_k > cur_k and graph.n >= ipc.device_extension_n:
+        t0 = time.perf_counter()
+        best = extend_partition_device(graph, part, cur_k, new_k, ctx, jobs)
+        if ipc.device_extension_reps > 1:
+            best_cut = metrics.edge_cut(graph, best)
+            for _ in range(ipc.device_extension_reps - 1):
+                cand = extend_partition_device(graph, part, cur_k, new_k, ctx, jobs)
+                cut = metrics.edge_cut(graph, cand)
+                if cut < best_cut:
+                    best, best_cut = cand, cut
+        jobs["device"] += 1
+        jobs["device_s"] += time.perf_counter() - t0
+        return best
+    return _extend_partition_host(graph, part, cur_k, new_k, ctx, jobs)
+
+
+def new_job_stats() -> dict:
+    """Counters of the extension steps: host jobs of each kind (count and
+    summed seconds; the jobs overlap in the thread pool, so the sums can
+    exceed the wall), the wall of the pooled sections (``pooled_s``) and
+    the device-extension steps (count and wall, their nested host jobs
+    included)."""
+    return {"bisections": 0, "bisections_s": 0.0, "nested": 0, "nested_s": 0.0,
+            "pooled_s": 0.0, "device": 0, "device_s": 0.0}
+
+
+def _on_device(device):
+    """The CUDA current-device scope of ``device`` (kernel launches in a
+    worker thread take the thread's current device), or no scope."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _extend_partition_host(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
+                           ctx: Context, jobs: dict) -> np.ndarray:
+    """Per-block host extension: the block subgraphs are extracted on the
+    host, and every block's job (recursive bisection, or a nested deep
+    pipeline for splits into four or more parts of large subgraphs) runs
+    in a thread pool (``platform.extension_workers`` threads) under its
+    own seed, so that the result depends on neither the job order nor the
+    number of workers."""
     final_bw = np.asarray(ctx.partition.max_block_weights, dtype=np.int64)
     k = len(final_bw)
     off_new = split_offsets(k, new_k)
@@ -61,10 +112,10 @@ def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
     host = graph_to_host(graph)
     base_seed = int(RandomState.numpy_rng().integers(1 << 30))
     out = np.zeros(graph.n, dtype=np.int32)
+    todo = []
     for b, (sub, nodes) in enumerate(extract_all_subgraphs(host, part, cur_k)):
         lo, hi = int(lo_of[b]), int(lo_of[b + 1])
-        sub_k = hi - lo
-        if sub_k <= 1:
+        if hi - lo <= 1:
             out[nodes] = lo
             continue
         # budgets of the new blocks = sums of their final budgets
@@ -72,8 +123,13 @@ def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
             [final_bw[off_new[j] : off_new[j + 1]].sum() for j in range(lo, hi)],
             dtype=np.int64,
         )
+        todo.append((b, lo, hi - lo, sub, nodes, budgets))
+
+    def run_job(job):
+        b, lo, sub_k, sub, nodes, budgets = job
         t0 = time.perf_counter()
-        with RandomState.scoped(base_seed ^ (b * 0x9E3779B9 & 0x7FFFFFFF)):
+        with _on_device(graph.device), RandomState.scoped(
+                base_seed ^ (b * 0x9E3779B9 & 0x7FFFFFFF)):
             if sub_k >= 4 and sub.n >= ctx.initial_partitioning.nested_extension_n:
                 kind = "nested"
                 subpart = _nested_partition(sub, sub_k, budgets, ctx, graph.device)
@@ -83,21 +139,31 @@ def extend_partition(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k: int,
                     sub, sub_k, budgets, RandomState.numpy_rng(),
                     ctx.initial_partitioning, device=graph.device,
                 )
-        jobs[kind] += 1
-        jobs[kind + "_s"] += time.perf_counter() - t0
-        out[nodes] = subpart + lo
+        return nodes, subpart + lo, kind, time.perf_counter() - t0
+
+    if todo:
+        t0 = time.perf_counter()
+        workers = platform.extension_workers(len(todo), graph.device)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            results = list(pool.map(run_job, todo))
+        jobs["pooled_s"] += time.perf_counter() - t0
+        for nodes, subpart, kind, seconds in results:
+            out[nodes] = subpart
+            jobs[kind] += 1
+            jobs[kind + "_s"] += seconds
     return out
 
 
 def _nested_partition(sub: HostCSR, sub_k: int, budgets: np.ndarray, ctx: Context,
                       device) -> np.ndarray:
     """Partition one extension subgraph with a nested deep pipeline on
-    ``device``; the best of ``nested_extension_reps`` attempts (feasible
-    first, then cut) wins."""
+    ``device`` (no minimum block weights); the best of
+    ``nested_extension_reps`` attempts (feasible first, then cut) wins."""
     sub_ctx = copy.deepcopy(ctx)
     sub_ctx.compression.enabled = False
     sub_ctx.partition.k = sub_k
     sub_ctx.partition.max_block_weights = np.asarray(budgets, dtype=np.int64)
+    sub_ctx.partition.min_block_weights = None
     g = from_numpy_csr(sub.row_ptr, sub.col_idx, sub.node_w, sub.edge_w, device=device)
     best_part, best_score = None, None
     for _ in range(max(ctx.initial_partitioning.nested_extension_reps, 1)):
@@ -118,10 +184,12 @@ class DeepMultilevelPartitioner:
         self.compressed = compressed
         self.device = graph.device if graph is not None else torch.device(device)
         # Host seconds of the three phases of the last partition() call
-        # (and of the extension steps inside uncoarsening, split into
-        # recursive-bisection and nested-pipeline jobs), the number of
-        # extension jobs of each kind, the coarsest graph's n, m and block
-        # count k0, and the number of coarsening levels it built.
+        # (and of the extension steps inside uncoarsening: the summed
+        # seconds of the recursive-bisection and nested-pipeline jobs,
+        # which overlap in the thread pool, the wall of the pooled
+        # sections and of device extension; see new_job_stats), the number
+        # of extension steps of each kind, the coarsest graph's n, m and
+        # block count k0, and the number of coarsening levels it built.
         self.phase_seconds = {}
         self.extension_jobs = {}
         self.coarsest = {}
@@ -142,7 +210,11 @@ class DeepMultilevelPartitioner:
                 graph.max_node_weight
             )
             max_bw = np.maximum(max_bw, relaxed)
-        p_graph = PartitionedGraph.create(graph, cur_k, part, max_bw)
+        # Minimum block weights apply once the partition carries the final
+        # k (an intermediate block merges several final blocks).
+        min_bw = (self.ctx.partition.min_block_weights
+                  if cur_k == self.ctx.partition.k else None)
+        p_graph = PartitionedGraph.create(graph, cur_k, part, max_bw, min_bw)
         return create_refiner(self.ctx).refine(p_graph)
 
     def partition(self) -> PartitionedGraph:
@@ -185,7 +257,7 @@ class DeepMultilevelPartitioner:
         p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
 
         extension_s = 0.0
-        jobs = {"bisections": 0, "bisections_s": 0.0, "nested": 0, "nested_s": 0.0}
+        jobs = new_job_stats()
         while True:
             graph = coarsener.current_graph
             target_k = compute_k_for_n(graph.n, C, k) if coarsener.num_levels > 0 else k
@@ -210,6 +282,8 @@ class DeepMultilevelPartitioner:
             "uncoarsening.extension": extension_s,
             "uncoarsening.extension.bisections": jobs["bisections_s"],
             "uncoarsening.extension.nested": jobs["nested_s"],
+            "uncoarsening.extension.pooled": jobs["pooled_s"],
+            "uncoarsening.extension.device": jobs["device_s"],
         }
-        self.extension_jobs = {"bisections": jobs["bisections"], "nested": jobs["nested"]}
+        self.extension_jobs = {key: jobs[key] for key in ("bisections", "nested", "device")}
         return p_graph

@@ -1,5 +1,5 @@
-"""Named presets: ``default``, ``fast`` and ``terapart`` (as in
-``kaminpar_tpu/presets.py``)."""
+"""Named presets: ``default``, ``fast``, ``terapart``, ``largek``,
+``largek-fast`` and ``terapart-largek`` (as in ``kaminpar_tpu/presets.py``)."""
 
 from __future__ import annotations
 
@@ -21,14 +21,27 @@ def create_default_context() -> Context:
     return ctx
 
 
-def create_fast_context() -> Context:
-    """Default with the fast preset's reduced iteration budgets."""
-    ctx = create_default_context()
-    ctx.preset_name = "fast"
+def _apply_fast_delta(ctx: Context) -> Context:
+    """The fast preset's reduced iteration budgets."""
     ctx.coarsening.lp.num_iterations = 1
     ctx.refinement.lp.num_iterations = 2
     ctx.initial_partitioning.min_num_repetitions = 1
     ctx.initial_partitioning.max_num_repetitions = 2
+    return ctx
+
+
+def _apply_largek_delta(ctx: Context) -> Context:
+    """The largek presets' tuning for large k: a bigger contraction limit,
+    and device extension (``partitioning/extension.py``)."""
+    ctx.coarsening.contraction_limit = 640
+    ctx.initial_partitioning.device_extension = True
+    return ctx
+
+
+def create_fast_context() -> Context:
+    """Default with the fast preset's reduced iteration budgets."""
+    ctx = _apply_fast_delta(create_default_context())
+    ctx.preset_name = "fast"
     return ctx
 
 
@@ -42,10 +55,36 @@ def create_terapart_context() -> Context:
     return ctx
 
 
+def create_largek_context() -> Context:
+    """Default tuned for k > 1024."""
+    ctx = _apply_largek_delta(create_default_context())
+    ctx.preset_name = "largek"
+    return ctx
+
+
+def create_largek_fast_context() -> Context:
+    """largek with the fast preset's budgets."""
+    ctx = _apply_fast_delta(create_largek_context())
+    ctx.preset_name = "largek-fast"
+    return ctx
+
+
+def create_terapart_largek_context() -> Context:
+    """largek over a compressed input graph, as terapart."""
+    ctx = _apply_largek_delta(create_default_context())
+    ctx.preset_name = "terapart-largek"
+    ctx.compression.enabled = True
+    ctx.compression.device_decode = "auto"
+    return ctx
+
+
 _PRESETS = {
     "default": create_default_context,
     "fast": create_fast_context,
     "terapart": create_terapart_context,
+    "largek": create_largek_context,
+    "largek-fast": create_largek_fast_context,
+    "terapart-largek": create_terapart_largek_context,
 }
 
 

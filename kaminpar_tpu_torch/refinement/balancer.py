@@ -1,20 +1,25 @@
-"""Overload balancer: push weight out of overloaded blocks by relative gain
+"""Overload and underload balancers: move weight by relative gain
 (counterpart of ``kaminpar_tpu/refinement/balancer.py``).
 
-Bulk-synchronous rounds:
+Overload rounds (:func:`_balance_round`):
 
 1. every node of an overloaded block rates its best feasible external
    block (the rating kernel with ``external_only`` and caps); without one
-   it falls back to the globally lightest block,
+   it falls back to the lightest block (of its group, in the restricted
+   mode of device extension),
 2. per *source* block, movers are admitted in decreasing relative-gain
    order until the overload is covered (a per-block gain threshold found
    by bisection),
 3. per *target* block, admitted movers pass the same bisection as a strict
    capacity check, so no receiver becomes overloaded.
 
-The random inputs of a round (the rating ties and the gain jitter) come in
-through :class:`BalanceDraws`.  The underload balancer is a no-op without
-minimum block weights, which are not ported yet.
+Underload rounds (:func:`_underload_round`) pull weight into blocks below
+their minimum: donors never drop below their own minimum, receivers fill
+their deficit and stay within their cap.  The underload balancer is a
+no-op without minimum block weights.
+
+The random inputs of a round of either kind (the rating ties and the gain
+jitter) come in through :class:`BalanceDraws`.
 """
 
 from __future__ import annotations
@@ -82,10 +87,21 @@ def _admit_by_budget(mask, block_of, rel, node_w, budget, k: int, *, inclusive: 
     return admitted
 
 
+def _relative_gain(tconn, oconn, node_w, jitter):
+    rel = (tconn - oconn).to(torch.float32) / torch.clamp(node_w, min=1).to(torch.float32)
+    # jitter scaled to the gain so it stays above one float32 ulp
+    return rel + jitter * torch.clamp(rel.abs(), min=1.0)
+
+
 def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw, *,
-                   k: int):
+                   k: int, group_of=None):
     """One round; returns ``(new_labels, flags)`` with ``flags`` =
-    (moved count, still overloaded) as one (2,) int32 tensor."""
+    (moved count, still overloaded) as one (2,) int32 tensor.
+
+    ``group_of`` ((k,) int32 block -> group, optional) is the restricted
+    mode of device extension: the lightest-block fallback stays inside the
+    mover's group.  Rated targets are already in-group when the caller has
+    masked the cross-group edge weights."""
     zero = torch.zeros((), dtype=torch.int32, device=labels.device)
     block_weights = segment_sum(node_w, labels, k)
     target, tconn, oconn, has = bucketed_best_moves(
@@ -95,18 +111,23 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
     overloaded = block_weights > max_bw
     mover = overloaded[labels] & (node_w > 0)  # weight-0 nodes are padding
 
-    # Movers without a feasible adjacent target fall back to the lightest block.
-    light = first_argmin(block_weights)
+    # Movers without a feasible adjacent target fall back to the lightest
+    # block (of their group).
+    if group_of is None:
+        light = first_argmin(block_weights).to(torch.int32)
+    else:
+        gw_min = segment_min(block_weights, group_of, k)
+        blk = torch.arange(k, dtype=torch.int32, device=labels.device)
+        light_of_group = segment_min(
+            torch.where(block_weights == gw_min[group_of], blk, torch.full_like(blk, k)),
+            group_of, k)
+        light = torch.clamp(light_of_group[group_of[labels]], 0, k - 1)
     fallback_ok = block_weights[light] + node_w <= max_bw[light]
     use_fb = mover & ~has & fallback_ok & (labels != light)
-    target = torch.where(use_fb, light.to(torch.int32), target)
+    target = torch.where(use_fb, light, target)
     tconn = torch.where(use_fb, zero, tconn)
     eligible = mover & (has | use_fb)
-
-    gain = tconn - oconn
-    rel = gain.to(torch.float32) / torch.clamp(node_w, min=1).to(torch.float32)
-    # jitter scaled to the gain so it stays above one float32 ulp
-    rel = rel + draws.jitter * torch.clamp(rel.abs(), min=1.0)
+    rel = _relative_gain(tconn, oconn, node_w, draws.jitter)
 
     overload = torch.clamp(block_weights - max_bw, min=0)
     src_ok = _admit_by_budget(eligible, labels, rel, node_w, overload, k, inclusive=False)
@@ -117,6 +138,56 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
     commit = admitted & tgt_ok
     new_labels = torch.where(commit, target, labels)
     still = (segment_sum(node_w, new_labels, k) > max_bw).any()
+    flags = torch.stack([commit.sum(dtype=torch.int32), still.to(torch.int32)])
+    return new_labels, flags
+
+
+def _underload_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw,
+                     min_bw, *, k: int):
+    """One pull round: underloaded blocks admit the best relative-gain donor
+    nodes until their minimum is covered.  Returns ``(new_labels, flags)``
+    with ``flags`` = (moved count, still underloaded), (2,) int32."""
+    n = labels.shape[0]
+    dev = labels.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    block_weights = segment_sum(node_w, labels, k)
+    underloaded = block_weights < min_bw
+    # Only underloaded blocks can receive: every other block's cap
+    # collapses to its current weight.
+    eff_max = torch.where(underloaded, max_bw, block_weights)
+    target, tconn, oconn, has = bucketed_best_moves(
+        labels, bv, node_w, block_weights, eff_max, draws.ties, draws.heavy_tie,
+        external_only=True, respect_caps=True,
+    )
+    surplus = torch.clamp(block_weights - min_bw, min=0)
+    mover = (~underloaded)[labels] & (node_w > 0)
+
+    # Movers without an adjacent underloaded target spread over all deficit
+    # blocks (deficit-descending, round-robin by node index), so that every
+    # underloaded block can fill in one round, adjacent nodes or not.
+    deficit = torch.clamp(min_bw - block_weights, min=0)
+    by_deficit = torch.argsort(-deficit, stable=True).to(torch.int32)
+    num_needy = torch.clamp((deficit > 0).sum(dtype=torch.int32), min=1)
+    slot = torch.arange(n, dtype=torch.int32, device=dev) % num_needy
+    fb = by_deficit[slot]
+    fallback_ok = (deficit[fb] > 0) & (block_weights[fb] + node_w <= max_bw[fb])
+    use_fb = mover & ~has & fallback_ok & (labels != fb)
+    target = torch.where(use_fb, fb, target)
+    tconn = torch.where(use_fb, zero, tconn)
+    eligible = mover & (has | use_fb)
+    rel = _relative_gain(tconn, oconn, node_w, draws.jitter)
+
+    # donors never drop below their minimum; receivers fill their deficit
+    # and stay within their cap
+    src_ok = _admit_by_budget(eligible, labels, rel, node_w, surplus, k, inclusive=True)
+    admitted = eligible & src_ok
+    fill_ok = _admit_by_budget(admitted, target, rel, node_w, deficit, k, inclusive=False)
+    cap_ok = _admit_by_budget(admitted, target, rel, node_w,
+                              torch.clamp(max_bw - block_weights, min=0), k,
+                              inclusive=True)
+    commit = admitted & fill_ok & cap_ok
+    new_labels = torch.where(commit, target, labels)
+    still = (segment_sum(node_w, new_labels, k) < min_bw).any()
     flags = torch.stack([commit.sum(dtype=torch.int32), still.to(torch.int32)])
     return new_labels, flags
 
@@ -145,11 +216,31 @@ class OverloadBalancer(Refiner):
 
 
 class UnderloadBalancer(Refiner):
-    """A no-op without minimum block weights, which the port does not take
-    yet (the facade rejects them)."""
+    """Minimum-block-weight balancer: underload rounds until every block
+    reaches its minimum, no node moves or the round budget runs out.  A
+    no-op without minimum block weights."""
 
     def __init__(self, ctx: BalancerContext):
         self.ctx = ctx
 
     def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
-        return p_graph
+        if p_graph.min_block_weights is None or p_graph.is_min_feasible():
+            return p_graph
+        graph = p_graph.graph
+        pv = graph.padded()
+        bv = graph.bucketed()
+        max_bw = torch.as_tensor(p_graph.max_block_weights, dtype=torch.int32,
+                                 device=graph.device)
+        min_bw = torch.as_tensor(p_graph.min_block_weights, dtype=torch.int32,
+                                 device=graph.device)
+        labels = pv.pad_node_array(p_graph.partition, 0)
+        gen = RandomState.generator(graph.device)
+        for _ in range(self.ctx.max_num_rounds):
+            labels, flags = _underload_round(
+                labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
+                max_bw, min_bw, k=p_graph.k,
+            )
+            num_moved, still = flags.tolist()
+            if not still or num_moved == 0:
+                break
+        return p_graph.with_partition(labels[: pv.n])

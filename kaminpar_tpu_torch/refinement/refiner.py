@@ -16,14 +16,17 @@ class Refiner:
 
 class MultiRefiner(Refiner):
     """Ordered refiner pipeline that never returns a partition worse than
-    its input, ranked lexicographically on (infeasible, edge cut)."""
+    its input, ranked lexicographically on (infeasible, edge cut), where
+    feasible means within the maximum and, when set, above the minimum
+    block weights."""
 
     def __init__(self, refiners: Sequence[Refiner]):
         self.refiners = list(refiners)
 
     @staticmethod
     def _rank(p_graph: PartitionedGraph):
-        return (not p_graph.is_feasible(), p_graph.edge_cut())
+        infeasible = not (p_graph.is_feasible() and p_graph.is_min_feasible())
+        return (infeasible, p_graph.edge_cut())
 
     def refine(self, p_graph: PartitionedGraph) -> PartitionedGraph:
         debug = Logger.level >= OutputLevel.DEBUG

@@ -552,6 +552,69 @@ def test_round_and_balancer_on_card_match_cpu(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat", "hub"])
+def test_underload_and_grouped_balance_rounds_on_card_match_cpu(cuda, name):
+    """An underload round and a group-restricted overload round on the
+    group-masked graph: the kernels on the card equal the plain versions
+    on the CPU with the same draws."""
+    g = make_graph(name)
+    pv = g.padded()
+    gen = torch.Generator().manual_seed(6)
+    k = 8
+    part = torch.zeros(pv.n_pad, dtype=torch.int32)
+    part[: pv.n] = torch.where(torch.rand(pv.n, generator=gen) < 0.4, 0,
+                               torch.randint(1, k - 1, (pv.n,), generator=gen,
+                                             dtype=torch.int32))
+    W = g.total_node_weight
+    max_bw = torch.full((k,), int(W / k * 1.03) + 1, dtype=torch.int32)
+    min_bw = torch.full((k,), int(W / k * 0.97), dtype=torch.int32)
+    bv = g.bucketed()
+    dg = g.to(cuda)
+    draws = balancer.draw_balance_round(gen, bv, pv.n_pad)
+    ref = balancer._underload_round(part, draws, bv, pv.node_w, max_bw, min_bw, k=k)
+    out = balancer._underload_round(part.to(cuda), to(draws, cuda), dg.bucketed(),
+                                    dg.padded().node_w, max_bw.to(cuda), min_bw.to(cuda),
+                                    k=k)
+    assert_equal(ref, out, "underload round")
+    assert int(ref[1][0]) > 0
+
+    group_of = torch.arange(k, dtype=torch.int32) // 2
+    comm = group_of[part[: pv.n].long()]
+    mg, dmg = g.community_masked(comm), dg.community_masked(comm.to(cuda))
+    mbv = mg.bucketed()
+    draws = balancer.draw_balance_round(gen, mbv, pv.n_pad)
+    ref = balancer._balance_round(part, draws, mbv, pv.node_w, max_bw, k=k,
+                                  group_of=group_of)
+    out = balancer._balance_round(part.to(cuda), to(draws, cuda), dmg.bucketed(),
+                                  dmg.padded().node_w, max_bw.to(cuda), k=k,
+                                  group_of=group_of.to(cuda))
+    assert_equal(ref, out, "grouped balance round")
+    assert int(ref[1][0]) > 0
+
+
+@pytest.mark.cuda
+def test_pooled_extension_on_card_equals_serial(cuda, monkeypatch):
+    """largek on the card with device extension and the extension jobs on
+    8 worker threads and on one: the same partition, both kernels run."""
+    from kaminpar_tpu_torch.utils import platform
+
+    g = generators.rmat_graph(12, 8, seed=1)
+    parts = []
+    for workers in (8, 1):
+        monkeypatch.setattr(platform, "extension_workers",
+                            lambda jobs, device, w=workers: min(max(jobs, 1), w))
+        lp_kernels.reset_launches()
+        solver = kp.KaMinPar("largek")
+        solver.ctx.initial_partitioning.device_extension_n = 1024
+        solver.set_graph(g)
+        parts.append(solver.compute_partition(64))
+        assert solver.last_partition.is_feasible()
+        assert solver.last_partitioner.extension_jobs["device"] > 0
+        assert lp_kernels.LAUNCHES["lp_rate"] > 0 and lp_kernels.LAUNCHES["lp_commit"] > 0
+    assert np.array_equal(parts[0], parts[1])
+
+
+@pytest.mark.cuda
 def test_partition_on_card_launches_both_kernels(cuda):
     g = generators.rmat_graph(12, 8, seed=1)
     lp_kernels.reset_launches()
@@ -714,3 +777,13 @@ def test_pool_on_card_method_by_method_equals_whole_pool(cuda, monkeypatch):
     split = bip.pool_bipartition_device(*args, device=cuda)
     assert bip.pool_stats_snapshot()["chunked_calls"] == 1
     assert np.array_equal(whole[0], split[0]) and whole[1] == split[1]
+
+
+@pytest.mark.cuda
+def test_rmat_graph_built_on_the_card_equals_the_host_build(cuda):
+    host = generators.rmat_graph(14, 16, seed=1)
+    built = generators.rmat_graph(14, 16, seed=1, device=cuda)
+    assert built.device == torch.device("cpu")
+    for name in ("row_ptr", "col_idx", "node_w", "edge_w", "edge_u"):
+        assert torch.equal(getattr(host, name), getattr(built, name)), name
+

@@ -107,12 +107,29 @@ def test_explicit_block_weights_and_deterministic_seed():
     assert (bw <= caps).all()
 
 
+@pytest.mark.parametrize("scale,edge_factor,seed", [(6, 4, 0), (10, 8, 1), (13, 16, 1)])
+def test_rmat_graph_built_by_torch_equals_the_host_build_and_jax(scale, edge_factor, seed):
+    """``rmat_graph(device=...)`` (torch, here on the CPU) gives the host
+    build's graph, array for array, and so the JAX package's."""
+    host = tgen.rmat_graph(scale, edge_factor, seed=seed)
+    built = tgen.rmat_graph(scale, edge_factor, seed=seed, device="cpu")
+    ref = jgen.rmat_graph(scale, edge_factor, seed=seed)
+    for name in ("row_ptr", "col_idx", "node_w", "edge_w", "edge_u"):
+        assert torch.equal(getattr(host, name), getattr(built, name)), name
+    assert np.array_equal(built._host_row_ptr, host._host_row_ptr)
+    for name in ("row_ptr", "col_idx", "edge_w"):
+        assert np.array_equal(np.asarray(getattr(ref, name)),
+                              getattr(built, name).numpy()), name
+    with pytest.raises(ValueError, match="node_weights"):
+        tgen.rmat_graph(scale, edge_factor, seed=seed, device="cpu", node_weights=None)
+
+
 def test_facade_rejects_what_the_port_does_not_run():
     g = tgen.grid2d_graph(8, 8)
     solver = kp.KaMinPar("default", device="cpu")
     solver.set_graph(g)
-    with pytest.raises(NotImplementedError):
-        solver.compute_partition(2, min_block_weights=[1, 1])
+    with pytest.raises(ValueError, match="min_block_weights"):
+        solver.compute_partition(2, min_block_weights=[1, 1, 1])
     with pytest.raises(ValueError):
         solver.compute_partition(100)
     with pytest.raises(ValueError):
