@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                 # largek at RMAT scale 22, terapart 20, default 18
+    python3 chip_smoke.py                 # largek at RMAT scale 22, terapart and jet 20,
+                                          # default 18, strong 14
     python3 chip_smoke.py --scale 16      # a quicker run
     python3 chip_smoke.py --path-scale 22 # terapart at scale 22 too
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
     python3 chip_smoke.py --partition F   # also save terapart's final partition in F
     python3 chip_smoke.py --kernels-only --partition F  # and time the commit on it
 
-The terapart path runs on ``rmat_graph(path_scale, 16, seed=1)``
+The terapart and jet paths run on ``rmat_graph(path_scale, 16, seed=1)``
 (``path_scale`` = scale - 2 unless ``--path-scale`` gives it), the default
 path on ``rmat_graph(scale - 4)`` and the largek path on
 ``rmat_graph(scale)``: the largek path's time pushed the earlier paths
@@ -44,11 +45,37 @@ which fails the run when it fails:
 6. kernels of the default path: on the degree-bucketed layout of the
    terapart path's graph with its isolated nodes stripped (the shapes the
    default path gives them at that scale) the dense rating kernel and the
-   commit kernel are
-   compared with their plain versions and timed; then, on a small graph,
-   one whole LP round, one balancer round, one underload round and one
-   group-restricted balancer round on the card are compared with the
-   plain rounds on the CPU, with the same draws;
+   commit kernel are compared with their plain versions and timed;
+6a. jet path: ``KaMinPar("jet").compute_partition(k)`` on the terapart
+   path's graph, counters and peaks as in 4; feasible, all k blocks used,
+   the cut below 0.95x a random partition's and no higher than the
+   terapart path's (the default pipeline's) on the same graph, JET rounds
+   in every refine call, kernel #1 launched in JET's find mode; its phase
+   split and peak printed; then on its own final partition kernel #1 in
+   the find mode (``L = k``, no caps) and kernel #3 with a colour class as
+   its ``active`` mask and tie moves (a CLP superstep), each compared with
+   its plain version and timed;
+6b. CLP: ``CLPRefiner`` on the jet path's final partition on the card:
+   the cut does not rise and both kernels run; then the graph's colouring
+   (the refiner's entry point) is proper outside its stragglers (RMAT's
+   dense core needs more than the 62 colours, so the nodes left
+   uncoloured take colour 0, as in the reference), with the stragglers'
+   and the monochromatic edges' shares under their bounds; the colour
+   count, rounds, stragglers, monochromatic edges, the nodes moved and
+   the time are printed;
+6c. FM at the jet path's scale: one k-way FM pass (``FMRefiner``, one
+   iteration) on the jet path's final partition, its work bounded by
+   ``FM_PASS_WORK_FACTOR`` x n summed degree of moved nodes (the
+   strong preset's bound is 32x n): the cut does not rise; its host
+   seconds, moves and cut change are printed;
+6c'. strong path: ``KaMinPar("strong")`` into k blocks of
+   ``rmat_graph(STRONG_SCALE)``, a small functional check of the preset:
+   feasible, all blocks used, the cut below 0.95x random, FM's passes
+   (> 0) and host seconds printed;
+6d. round reference, on a small graph: one whole LP round, one balancer
+   round, one underload round, one group-restricted balancer round, one
+   JET move round, one colouring and one colored LP iteration on the card
+   are compared with the plain versions on the CPU, with the same draws;
 7. default path: ``KaMinPar("default").compute_partition(k)`` on
    ``rmat_graph(scale - 4)``, counters and peaks as in 4; the partition must be
    feasible, use all k blocks and cut less than 0.95x the edge weight a
@@ -141,6 +168,18 @@ LARGE_K = 1024
 LARGE_K_CUT_BOUND = 0.97
 # The pooled = serial check: largek into 64 blocks of rmat_graph(13).
 POOLED_SERIAL_SCALE, POOLED_SERIAL_K = 13, 64
+# CLP's colouring on the jet path's finest graph: the reference's 62
+# colours and 64 rounds leave RMAT's dense core uncoloured, at colour 0
+# (3,448 stragglers, 0.53% of the nodes, and 13.1% of the edges
+# monochromatic, each at a straggler, on an H100 at scale 20).  The bounds,
+# the measured shares with headroom, catch a regression of the colouring.
+CLP_MAX_STRAGGLER_SHARE = 0.01
+CLP_MAX_MONOCHROMATIC_SHARE = 0.2
+# The strong path: KaMinPar("strong") into K blocks of rmat_graph(14); its
+# k-way FM is a sequential host pass, so at the jet path's scale one pass
+# is timed alone, its work bounded to FM_PASS_WORK_FACTOR x n.
+STRONG_SCALE = 14
+FM_PASS_WORK_FACTOR = 0.25
 
 
 def log(msg: str) -> None:
@@ -369,11 +408,14 @@ def bitonic_ops(R: int, w: int) -> int:
     return R * (w // 2) * lg * (lg + 1) // 2 + 2 * R * w
 
 
-def commit_bytes(n: int, L: int, maxw_len: int, act: bool, coin: bool) -> int:
+def commit_bytes(n: int, L: int, maxw_len: int, act: bool, coin: bool,
+                 active: bool = False) -> int:
     """The commit's inputs read once (labels, node_w, target, tconn,
-    own_conn, prio; the flags it uses; label weights and caps) and its
-    outputs written once (new labels, new label weights, the count)."""
-    return 4 * (6 * n + L + maxw_len) + n * (int(act) + int(coin)) + 4 * (n + L + 1)
+    own_conn, prio; the flags it uses: the active share, the tie coins, the
+    colour-class mask; label weights and caps) and its outputs written once
+    (new labels, new label weights, the count)."""
+    return (4 * (6 * n + L + maxw_len) + n * (int(act) + int(coin) + int(active))
+            + 4 * (n + L + 1))
 
 
 def commit_ops(n: int, movers: int) -> int:
@@ -670,7 +712,10 @@ def time_commit(call, err: int, opts: dict, what: str) -> dict:
     act = opts["active_prob"] < 1.0
     movers, largest = commit_movers(call, opts)
     bound_ms, bound_by = bound(
-        commit_bytes(n, L, int(call[5].numel()), act=act, coin=False), commit_ops(n, movers))
+        commit_bytes(n, L, int(call[5].numel()), act=act,
+                     coin=opts.get("allow_tie_moves", False),
+                     active=opts.get("active") is not None),
+        commit_ops(n, movers))
     radix = lp.use_radix_auction(L)
     meas = dict(
         kernel="lp_commit", what=f"one commit at {what} (n = {n}, L = {L}; the plain "
@@ -987,16 +1032,16 @@ def phase_off_vs_finest(g, scale: int, k: int, eps: float):
 
 
 def phase_round_reference(device):
-    """One LP clustering round, one balancer round, one underload round
-    and one group-restricted balancer round (on the group-masked graph)
-    through the wrappers: the kernels on the card against the plain
-    versions on the CPU, with the same draws (a small graph: the CPU side
-    is slow)."""
+    """One LP clustering round, one balancer round, one underload round,
+    one group-restricted balancer round (on the group-masked graph), one
+    JET move round, one colouring and one colored LP iteration through the
+    wrappers: the kernels on the card against the plain versions on the
+    CPU, with the same draws (a small graph: the CPU side is slow)."""
     import torch
 
     from kaminpar_tpu_torch.graph import generators
-    from kaminpar_tpu_torch.ops import lp
-    from kaminpar_tpu_torch.refinement import balancer
+    from kaminpar_tpu_torch.ops import bucketed_gains, coloring, lp
+    from kaminpar_tpu_torch.refinement import balancer, jet
 
     def to(x):
         if isinstance(x, torch.Tensor):
@@ -1065,6 +1110,50 @@ def phase_round_reference(device):
         f"{int(gout[1][0])}) on the card equal the plain rounds on the CPU")
     if min(int(uout[1][0]), int(gout[1][0])) <= 0:
         raise AssertionError("the underload or grouped round moved nothing")
+
+    # the quality refiners' rounds: one JET move round (kernel #1 in its
+    # find mode), one colouring and one colored LP iteration (kernel #3
+    # with colour-class masks), 16 blocks
+    k = 16
+    part = torch.zeros(pv.n_pad, dtype=torch.int32)
+    part[: pv.n] = torch.randint(0, k, (pv.n,), generator=gen, dtype=torch.int32)
+    locked = torch.zeros(pv.n_pad, dtype=torch.bool)
+    locked[: pv.n] = torch.rand(pv.n, generator=gen) < 0.2
+    max_bw = torch.full((k,), int(W / k * 1.03) + 1, dtype=torch.int32)
+    ties = bucketed_gains.draw_ties(gen, bv)
+    jref = jet._jet_move_round(part, locked, ties, bv, pv.node_w, max_bw, 0.75, k=k)
+    jout = jet._jet_move_round(part.to(device), locked.to(device), to(ties), dbv,
+                               dpv.node_w, max_bw.to(device), 0.75, k=k)
+    if max_abs_err(jref, jout):
+        raise AssertionError("JET move round on the card != plain round on the CPU")
+    prios = [torch.randint(0, 2**31 - 1, (pv.n_pad,), generator=gen, dtype=torch.int32)
+             for _ in range(64)]
+    mask = torch.arange(pv.n_pad) < pv.n
+    cref, crounds = coloring.color_graph(lambda i: prios[i], pv.edge_u, pv.col_idx, mask,
+                                         n=pv.n_pad)
+    cout, drounds = coloring.color_graph(lambda i: prios[i].to(device), dpv.edge_u,
+                                         dpv.col_idx, mask.to(device), n=pv.n_pad)
+    if max_abs_err((cref,), (cout,)) or crounds != drounds:
+        raise AssertionError("colouring on the card != colouring on the CPU")
+    colors = torch.clamp(cref, min=0)
+    nc = int(coloring.num_colors_device(colors, mask))
+    L = lp.num_labels_bucket(k)
+    caps = torch.zeros(L, dtype=torch.int32)
+    caps[:k] = int(W / k * 1.05) + 1
+    cdraws = [lp.draw_lp_round(gen, bv, pv.n_pad, allow_tie_moves=True) for _ in range(nc)]
+    sref = lp.clp_iterate_colors(lp.init_state(part, pv.node_w, L), lambda c: cdraws[c], bv,
+                                 pv.node_w, caps, colors, nc, num_labels=L)
+    sout = lp.clp_iterate_colors(lp.init_state(part.to(device), dpv.node_w, L),
+                                 lambda c: to(cdraws[c]), dbv, dpv.node_w, caps.to(device),
+                                 colors.to(device), nc, num_labels=L)
+    if max_abs_err(sref, sout):
+        raise AssertionError("CLP iteration on the card != plain iteration on the CPU")
+    log(f"round reference: one JET move round (moved {int(jout[1].sum())}), one colouring "
+        f"({nc} colours, {crounds} rounds, {int((cref < 0).sum())} stragglers) and one CLP "
+        f"iteration ({nc} supersteps, moved {int(sout.num_moved)}) on the card equal the "
+        f"plain versions on the CPU")
+    if int(jout[1].sum()) <= 0 or int(sout.num_moved) <= 0:
+        raise AssertionError("the JET round or the CLP iteration moved nothing")
 
 
 def check_pool_served(pool: dict, path: str) -> None:
@@ -1207,18 +1296,24 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
 
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.ops import bipartition, lp_kernels
+    from kaminpar_tpu_torch.refinement import fm_refiner, jet
 
     solver = kp.KaMinPar(preset)  # no device: cuda:0
     solver.set_graph(graph)
     with PeakTracker() as mem, capture or contextlib.nullcontext():
         lp_kernels.reset_launches()
         bipartition.reset_pool_stats()
+        jet.reset_jet_stats()
+        fm_refiner.reset_fm_stats()
         t0 = time.perf_counter()
         part = solver.compute_partition(k, epsilon=eps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(lp_kernels.LAUNCHES)
+        rate_modes = dict(lp_kernels.RATE_MODES)
         pool = bipartition.pool_stats_snapshot()
+        jet_stats = jet.jet_stats_snapshot()
+        fm_stats = fm_refiner.fm_stats_snapshot()
     p = solver.last_partition
     cut = int(p.edge_cut())
     bw = p.block_weights()
@@ -1232,6 +1327,7 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
                 peak_calls=mem.calls, levels=part_info.num_levels,
                 coarsest=part_info.coarsest, phase_s=part_info.phase_seconds,
                 extension_jobs=part_info.extension_jobs, pool=pool, launches=launches,
+                rate_modes=rate_modes, jet=jet_stats, fm=fm_stats,
                 commit_calls=mem.commit_log(preset))
     log(json.dumps(info))
     check_pool_served(pool, preset)
@@ -1338,6 +1434,225 @@ def phase_largek_kernels(work, part, max_bw, device, k: int):
                          f"refinement instantiation (L = {L}), its final partition and "
                          "rated moves")
     return rate, commit
+
+
+JET_FIND_MODE = "lp_rate:external_only=1,respect_caps=0"
+
+
+def phase_jet_path(graph, k: int, eps: float, terapart_cut: int):
+    """``KaMinPar("jet").compute_partition(k)`` on the terapart path's graph,
+    as the default path (``drive_dense_path``); its cut must also be no
+    higher than the terapart path's (the default pipeline's) on the same
+    graph, JET must have run at least one round in every refine call (one
+    call a level and extension step) and the rating kernel must have
+    launched in JET's find mode.  Logs the phase split and the peak;
+    returns the path's line, its partition and block caps."""
+    info, solver, part = drive_dense_path("jet", "jet_path", graph, k, eps, 0.95)
+    stats = info["jet"]
+    log("jet split (s): " + ", ".join(
+        f"{key} {val:.3f}" for key, val in info["phase_s"].items())
+        + f"; peak {info['peak_bytes']} B; JET calls {stats['calls']}, rounds "
+        f"{stats['rounds']}, fewest in a call {stats['min_rounds']}")
+    if info["cut"] > terapart_cut:
+        raise AssertionError(f"jet cut {info['cut']} is above the terapart path's "
+                             f"{terapart_cut} on the same graph")
+    if stats["calls"] < info["levels"] + 1 or not stats["min_rounds"]:
+        raise AssertionError(f"JET did not run a round on every level: {stats}")
+    if info["rate_modes"].get(JET_FIND_MODE, 0) <= 0:
+        raise AssertionError(f"kernel #1 did not launch in JET's find mode: "
+                             f"{info['rate_modes']}")
+    return info, part, solver.last_partition.max_block_weights
+
+
+def phase_jet_kernels(work, part, max_bw, device, k: int):
+    """Kernels #1 and #3 in the new refiners' modes on the jet path's own
+    data (its final partition on its finest graph): the rating kernel in
+    JET's find mode (``external_only``, no caps, ``L = k`` block weights,
+    one JET round's ties) against its plain version on every bucket and
+    timed as one pass; the commit kernel with colour class 0 of the graph's
+    colouring as its ``active`` mask and tie moves (a CLP superstep at
+    ``L = num_labels_bucket(k)``, the moves rated with caps) against both
+    plain auctions, twice, and timed."""
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.ops import bucketed_gains, coloring, lp
+    from kaminpar_tpu_torch.ops.segment import segment_sum
+
+    pv, bv = work.padded(), work.bucketed()
+    labels = pv.pad_node_array(torch.as_tensor(part).to(device=device, dtype=torch.int32), 0)
+    bw = segment_sum(pv.node_w, labels, k)
+    caps_k = torch.as_tensor(np.asarray(max_bw), dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    ties, _ = bucketed_gains.draw_ties(gen, bv)
+    flags = dict(external_only=True, respect_caps=False, tie_break="uniform")
+    args = (labels, pv.node_w, bw, caps_k)
+    err = 0
+    for i, (b, tie) in enumerate(zip(bv.buckets, ties)):
+        ref = bucketed_gains._bucket_moves(labels, b, pv.node_w, bw, caps_k, tie, **flags)
+        err = max(err, max_abs_err(ref, rate_dense(*args, bv, i, tie, **flags)))
+        if err:
+            raise AssertionError(f"rating kernel != plain in JET's find mode, "
+                                 f"w={b.cols.shape[1]}")
+    log(f"  rate JET find L={k} (jet path data): equal on {len(bv.buckets)} buckets")
+
+    def kernel_pass():
+        for i, tie in enumerate(ties):
+            rate_dense(*args, bv, i, tie, **flags)
+
+    def plain_pass():
+        for b, tie in zip(bv.buckets, ties):
+            bucketed_gains._bucket_moves(labels, b, pv.node_w, bw, caps_k, tie, **flags)
+
+    shapes = [tuple(b.cols.shape) for b in bv.buckets]
+    buckets = [(w, R, real, dense_bucket_bytes(R, real, w), rating_ops(real, w),
+                dense_bucket_bytes_all_rows(R, w), bitonic_ops(R, w))
+               for (R, w), real in zip(shapes, bv.real_rows)]
+    bound_ms, bound_by, _ = pass_bounds(buckets, table_bytes(pv.n_pad, k, k))
+    rate = dict(
+        kernel="lp_rate", what=f"one rating pass over all buckets of the jet path's "
+        f"finest graph in JET's find mode (external_only, no caps, L = {k}), its final "
+        "partition", n=pv.n_pad, L=k, kernel_ms=cuda_time_ms(kernel_pass, iters=20),
+        host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
+        plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, max_abs_err=err)
+    log(json.dumps(rate))
+
+    L = lp.num_labels_bucket(k)
+    caps = torch.zeros(L, dtype=torch.int32, device=device)
+    caps[:k] = caps_k
+    state = lp.init_state(labels, pv.node_w, L)
+    mask = torch.arange(pv.n_pad, device=device) < pv.n
+    colors, _ = coloring.color_graph(
+        lambda i: torch.randint(0, 2**31 - 1, (pv.n_pad,), generator=gen, device=device,
+                                dtype=torch.int32), pv.edge_u, pv.col_idx, mask, n=pv.n_pad)
+    colors = torch.clamp(colors, min=0)
+    draws = lp.draw_lp_round(gen, bv, pv.n_pad, allow_tie_moves=True)
+    target, tconn, own, _ = lp.best_moves(labels, bv, pv.node_w, state.label_weights, caps,
+                                          draws.ties, draws.heavy_tie, external_only=False,
+                                          respect_caps=True)
+    active = colors == 0
+    call = (state, target, tconn, own, pv.node_w, caps, L, draws.prio, draws.coin, None)
+    opts = dict(active_prob=1.0, allow_tie_moves=True, active=active)
+    err = check_commit(f"colour class 0 of {int(active.sum())} nodes (jet path data), "
+                       f"L={L}", call, opts, (True, False))
+    commit = time_commit(call, err, opts, f"the jet path's finest level, a CLP superstep "
+                         f"(colour class 0 as the active mask, tie moves, L = {L}), its "
+                         "final partition and rated moves")
+    return rate, commit
+
+
+def phase_clp(work, part, max_bw, device, k: int) -> dict:
+    """``CLPRefiner`` on the jet path's final partition on its finest graph,
+    on the card, with the launch counters set to 0 just before: the cut
+    must not rise and the rating and commit kernels must have run.  Then
+    the graph is coloured through the refiner's entry point
+    (``coloring.color_graph``, seeded here): proper outside its stragglers
+    (nodes the 62 colours or 64 rounds left uncoloured, at colour 0), the
+    stragglers at most ``CLP_MAX_STRAGGLER_SHARE`` of the nodes and the
+    monochromatic edges at most ``CLP_MAX_MONOCHROMATIC_SHARE`` of m.  Logs
+    the colour count, rounds, stragglers, monochromatic edges, the nodes
+    CLP moved and its time."""
+    import torch
+
+    from kaminpar_tpu_torch.context import ColoredLPContext
+    from kaminpar_tpu_torch.graph.partitioned import PartitionedGraph
+    from kaminpar_tpu_torch.ops import coloring, lp_kernels
+    from kaminpar_tpu_torch.refinement.clp_refiner import CLPRefiner
+
+    p = PartitionedGraph.create(work, k, torch.as_tensor(part).to(device), max_bw)
+    cut_in = int(p.edge_cut())
+    lp_kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = CLPRefiner(ColoredLPContext()).refine(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lp_kernels.LAUNCHES)
+    cut_out = int(out.edge_cut())
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    pv = work.padded()
+    mask = torch.arange(pv.n_pad, device=device) < pv.n
+    raw, rounds = coloring.color_graph(
+        lambda i: torch.randint(0, 2**31 - 1, (pv.n_pad,), generator=gen, device=device,
+                                dtype=torch.int32), pv.edge_u, pv.col_idx, mask, n=pv.n_pad)
+    strag = raw[: work.n] < 0
+    colors = torch.clamp(raw[: work.n], min=0)
+    u, v = work.edge_u.long(), work.col_idx.long()
+    mono = (colors[u] == colors[v]) & (u != v)
+    info = dict(phase="clp", graph="the jet path's finest graph", n=work.n, m=work.m, k=k,
+                cut_in=cut_in, cut_out=cut_out, feasible=bool(out.is_feasible()),
+                wall_s=wall, nodes_moved=int((out.partition != p.partition).sum()),
+                colors=int(coloring.num_colors_device(raw.clamp(min=0), mask)),
+                rounds=rounds, stragglers=int(strag.sum()),
+                monochromatic_edges=int(mono.sum()) // 2, proper=not bool(mono.any()),
+                proper_outside_stragglers=not bool((mono & ~strag[u] & ~strag[v]).any()),
+                launches=launches)
+    info["straggler_share"] = info["stragglers"] / max(work.n, 1)
+    info["monochromatic_share"] = 2 * info["monochromatic_edges"] / max(work.m, 1)
+    log(json.dumps(info))
+    if cut_out > cut_in:
+        raise AssertionError("CLP raised the cut")
+    if launches["lp_rate"] <= 0 or launches["lp_commit"] <= 0:
+        raise AssertionError(f"a kernel did not run in CLP: {launches}")
+    if not info["proper_outside_stragglers"]:
+        raise AssertionError("the colouring is not proper outside its stragglers")
+    if (info["straggler_share"] > CLP_MAX_STRAGGLER_SHARE
+            or info["monochromatic_share"] > CLP_MAX_MONOCHROMATIC_SHARE):
+        raise AssertionError(
+            f"the colouring left {info['stragglers']} stragglers and "
+            f"{info['monochromatic_edges']} monochromatic edges, above the bounds "
+            f"{CLP_MAX_STRAGGLER_SHARE} of n and {CLP_MAX_MONOCHROMATIC_SHARE} of m")
+    return info
+
+
+def phase_fm_pass(work, part, max_bw, device, k: int) -> dict:
+    """One k-way FM pass on the jet path's final partition on its finest
+    graph (the graph and partition on the card, the pass on the host), its
+    work bounded to ``FM_PASS_WORK_FACTOR`` x n: the cut must not rise.
+    Logs its host seconds (transfers, tables and the pass), the nodes it
+    moved and the cut change."""
+    import torch
+
+    from kaminpar_tpu_torch.context import FMContext
+    from kaminpar_tpu_torch.graph.partitioned import PartitionedGraph
+    from kaminpar_tpu_torch.refinement import fm_refiner
+
+    p = PartitionedGraph.create(work, k, torch.as_tensor(part).to(device), max_bw)
+    cut_in = int(p.edge_cut())
+    fm_refiner.reset_fm_stats()
+    ctx = FMContext(num_iterations=1, pass_work_budget_factor=FM_PASS_WORK_FACTOR)
+    out = fm_refiner.FMRefiner(ctx).refine(p)
+    stats = fm_refiner.fm_stats_snapshot()
+    info = dict(phase="fm_pass", graph="the jet path's finest graph", n=work.n, m=work.m,
+                k=k, work_budget_factor=FM_PASS_WORK_FACTOR, cut_in=cut_in,
+                cut_out=int(out.edge_cut()), feasible=bool(out.is_feasible()),
+                nodes_moved=int((out.partition != p.partition).sum()), passes=stats["passes"],
+                host_s=stats["seconds"])
+    log(json.dumps(info))
+    if stats["passes"] != 1 or info["cut_out"] > cut_in or not info["feasible"]:
+        raise AssertionError(f"the FM pass failed: {info}")
+    return info
+
+
+def phase_strong_path(scale: int, k: int, eps: float):
+    """``KaMinPar("strong").compute_partition(k)`` on ``rmat_graph(scale)``,
+    as the default path (``drive_dense_path``), a small functional check of
+    the preset (its FM is a host pass); FM must have run passes.
+    Logs FM's passes and host seconds."""
+    from kaminpar_tpu_torch.graph import generators
+
+    t0 = time.perf_counter()
+    g = generators.rmat_graph(scale, 16, seed=1, device="cuda")
+    log(f"graph: rmat_graph({scale}, 16, seed=1) n={g.n} m={g.m} "
+        f"({time.perf_counter() - t0:.1f} s, built on the card)")
+    info, _, _ = drive_dense_path("strong", "strong_path", g, k, eps, 0.95)
+    fm = info["fm"]
+    log(f"strong: FM {fm['calls']} calls, {fm['passes']} passes, {fm['seconds']:.3f} host "
+        f"s of {info['wall_s']:.3f} s")
+    if fm["passes"] <= 0:
+        raise AssertionError(f"FM ran no pass on the strong path: {fm}")
+    return info
 
 
 def phase_min_weights(g, scale: int, k: int, eps: float):
@@ -1562,7 +1877,16 @@ def main() -> int:
     work = finest_graph(graph, K, device)
     rate, commit_default = phase_kernels(work, device, K)
     commit["instances"].insert(1, commit_default)
-    del work, graph
+    torch.cuda.empty_cache()
+    jinfo, jpart, jcaps = phase_jet_path(graph, K, EPSILON, tinfo["cut"])
+    torch.cuda.empty_cache()
+    jpart = work_partition(graph, jpart, K)
+    rate_j, commit_j = phase_jet_kernels(work, jpart, jcaps, device, K)
+    cinfo = phase_clp(work, jpart, jcaps, device, K)
+    phase_fm_pass(work, jpart, jcaps, device, K)
+    del work, graph, jpart
+    torch.cuda.empty_cache()
+    sinfo = phase_strong_path(STRONG_SCALE, K, EPSILON)
     torch.cuda.empty_cache()
 
     small = rmat(args.scale - 4)
@@ -1578,8 +1902,8 @@ def main() -> int:
     work = finest_graph(graph, LARGE_K, device)
     rate_l, commit_l = phase_largek_kernels(work, work_partition(graph, lpart, LARGE_K), lcaps,
                                             device, LARGE_K)
-    rate["instances"] = [rate.copy(), rate_l]
-    commit["instances"].append(commit_l)
+    rate["instances"] = [rate.copy(), rate_l, rate_j]
+    commit["instances"] += [commit_l, commit_j]
     del work, graph
     torch.cuda.empty_cache()
     minfo = phase_min_weights(small, args.scale - 4, K, EPSILON)
@@ -1588,7 +1912,8 @@ def main() -> int:
     phase_pool_width(device)
     phase_small_reference()
 
-    paths = dict(terapart=tinfo, default=info, largek=linfo, min_weights=minfo)
+    paths = dict(terapart=tinfo, default=info, largek=linfo, min_weights=minfo, jet=jinfo,
+                 clp=cinfo, strong=sinfo)
     kernels = []
     for meas, source, replaces in (
             (rate, RATE_SOURCE, RATE_REPLACES),

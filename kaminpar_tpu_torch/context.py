@@ -1,11 +1,10 @@
 """Configuration tree of the port.
 
 A trimmed copy of ``kaminpar_tpu/context.py``: only the dataclasses and
-fields the ``default``, ``fast``, ``terapart`` and ``largek`` presets
-read.  Defaults are the JAX
+fields the port's presets (``presets.py``) read.  Defaults are the JAX
 package's.  There is no ``lp_kernel`` knob: the LP round runs the CUDA
 kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
-(``ops/lp_kernels.py``).  The initial bipartitioning pool is the host pool.
+(``ops/lp_kernels.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +24,12 @@ class PartitioningMode(enum.Enum):
 class RefinementAlgorithm(enum.Enum):
     NOOP = "noop"
     LP = "lp"
+    CLP = "clp"  # colored LP
+    JET = "jet"
+    KWAY_FM = "kway-fm"
     OVERLOAD_BALANCER = "overload-balancer"
     UNDERLOAD_BALANCER = "underload-balancer"
+    GREEDY_BALANCER = "greedy-balancer"  # alias of the overload balancer
 
 
 class TieBreakingStrategy(enum.Enum):
@@ -121,8 +124,50 @@ class InitialPartitioningContext:
 
 
 @dataclass
+class JetContext:
+    # Full JET invocations chained per refinement step ("4xjet": 4).
+    num_rounds: int = 1
+    num_iterations: int = 12
+    num_fruitless_iterations: int = 12
+    fruitless_threshold: float = 0.999
+    # Negative-gain admission temperatures on fine and coarse levels,
+    # annealed linearly from initial to final over the iterations.
+    initial_gain_temp_on_fine_level: float = 0.25
+    final_gain_temp_on_fine_level: float = 0.25
+    initial_gain_temp_on_coarse_level: float = 0.75
+    final_gain_temp_on_coarse_level: float = 0.75
+
+
+@dataclass
 class BalancerContext:
     max_num_rounds: int = 8
+
+
+@dataclass
+class ColoredLPContext:
+    num_iterations: int = 2
+    # Zero-gain moves are safe inside a colour class (an independent set).
+    allow_tie_moves: bool = True
+
+
+@dataclass
+class FMContext:
+    """k-way FM, a sequential host pass (``refinement/fm_refiner.py``)."""
+
+    num_iterations: int = 10
+    alpha: float = 1.0  # adaptive stopping (Osipov/Sanders)
+    num_fruitless_moves: int = 100
+    abortion_threshold: float = 0.999
+    # Border seeds consumed per localized search region.
+    num_seed_nodes: int = 10
+    # A pass stops (after its current region) once the summed degree of
+    # the moved nodes exceeds factor * n; <= 0 disables.
+    pass_work_budget_factor: float = 32.0
+    # Graphs above max_n nodes skip FM (a wall-time bound on the pass);
+    # up to dense_nk_threshold connection entries the pass keeps a dense
+    # (n, k) table, above it a border-row table.
+    max_n: int = 1 << 23
+    dense_nk_threshold: int = 1 << 26
 
 
 @dataclass
@@ -134,7 +179,10 @@ class RefinementContext:
     lp: LabelPropagationContext = field(
         default_factory=lambda: LabelPropagationContext(num_iterations=5)
     )
+    jet: JetContext = field(default_factory=JetContext)
     balancer: BalancerContext = field(default_factory=BalancerContext)
+    fm: FMContext = field(default_factory=FMContext)
+    clp: ColoredLPContext = field(default_factory=ColoredLPContext)
 
 
 @dataclass
@@ -197,8 +245,8 @@ class Context:
 
 __all__ = [
     "BalancerContext", "ClusterWeightLimit",
-    "CoarseningContext", "Context", "GraphCompressionContext",
-    "InitialPartitioningContext",
+    "CoarseningContext", "ColoredLPContext", "Context", "FMContext",
+    "GraphCompressionContext", "InitialPartitioningContext", "JetContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
     "RefinementAlgorithm", "RefinementContext", "TieBreakingStrategy",
 ]

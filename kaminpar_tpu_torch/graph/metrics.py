@@ -21,13 +21,29 @@ def block_weights(graph: CSRGraph, partition, k: int) -> np.ndarray:
     return bw.cpu().numpy()
 
 
+def _directed_cut(graph: CSRGraph, lab) -> torch.Tensor:
+    """Twice the edge cut of the int64 labels ``lab``, a device scalar."""
+    cut = lab[graph.edge_u.long()] != lab[graph.col_idx.long()]
+    return torch.where(cut, graph.edge_w.to(torch.int64), 0).sum()
+
+
 def edge_cut(graph: CSRGraph, partition) -> int:
     """Total weight of cut edges, each undirected edge counted once."""
     if graph.m == 0:
         return 0
+    return int(_directed_cut(graph, _labels(graph, partition))) // 2
+
+
+def cut_and_overloaded(graph: CSRGraph, partition, k: int, max_block_weights):
+    """(edge cut, whether any block is above its maximum), read back
+    together."""
     lab = _labels(graph, partition)
-    cut = lab[graph.edge_u.long()] != lab[graph.col_idx.long()]
-    return int(torch.where(cut, graph.edge_w.to(torch.int64), 0).sum()) // 2
+    bw = torch.zeros(k, dtype=torch.int64, device=graph.device)
+    bw.index_add_(0, lab, graph.node_w.to(torch.int64))
+    caps = torch.as_tensor(max_block_weights, dtype=torch.int64, device=graph.device)
+    over = (bw > caps).any().to(torch.int64)
+    cut2, overloaded = torch.stack([_directed_cut(graph, lab), over]).tolist()
+    return cut2 // 2, bool(overloaded)
 
 
 def imbalance(graph: CSRGraph, partition, k: int) -> float:

@@ -204,3 +204,23 @@ def assemble_moves(outs, gather_idx, labels, n: int, n_pad: int):
         own_conn = torch.cat([own_conn, own_conn.new_zeros(pad)])
         has = torch.cat([has, has.new_zeros(pad)])
     return target, tconn, own_conn, has
+
+
+def bucketed_neighbor_reduce(fn, bv: BucketedView, n_pad: int) -> torch.Tensor:
+    """Per-node sum over neighbours in the bucketed layout: ``fn(nodes,
+    cols, wgts)`` gives the (R, w) int32 contributions of a bucket (nodes
+    as an (R, 1) column) or the (S,) ones of the heavy slots; they are
+    summed per row (int32, wrapping) and gathered into an (n_pad,) array,
+    0 on pad nodes.  JET's pessimistic-gain filter runs on it."""
+    outs = [fn(b.nodes[:, None], b.cols, b.wgts).sum(dim=1, dtype=torch.int32)
+            for b in bv.buckets]
+    hnodes, hrow, hcols, hw = bv.heavy
+    if hnodes.shape[0] > 0:
+        contrib = fn(hnodes[hrow], hcols, hw)
+        outs.append(torch.zeros(hnodes.shape[0], dtype=torch.int32,
+                                device=contrib.device).index_add_(0, hrow, contrib))
+    flat = torch.cat(outs)[bv.gather_idx]
+    pad = n_pad - bv.n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat

@@ -261,6 +261,38 @@ def lp_iterate_bucketed(state: LPState, draw: Callable[[int], LPDraws], layout,
     return state
 
 
+def lp_round_colored(state: LPState, draws: LPDraws, bv, node_w, max_label_weights,
+                     active, *, num_labels: int, allow_tie_moves: bool = True) -> LPState:
+    """One colored superstep (CLP): only ``active`` (one colour class, an
+    independent set) may move.  The rating kernel rates every node with
+    caps, and the commit kernel takes ``active`` as its mask."""
+    from .lp_kernels import commit_moves
+
+    target, tconn, own_conn, _ = bucketed_best_moves(
+        state.labels, bv, node_w, state.label_weights, max_label_weights,
+        draws.ties, draws.heavy_tie, external_only=False, respect_caps=True,
+    )
+    return commit_moves(
+        state, target, tconn, own_conn, node_w, max_label_weights, num_labels,
+        draws.prio, draws.coin, allow_tie_moves=allow_tie_moves, active=active,
+    )
+
+
+def clp_iterate_colors(state: LPState, draw: Callable[[int], LPDraws], bv, node_w,
+                       max_label_weights, colors, num_colors: int, *, num_labels: int,
+                       allow_tie_moves: bool = True) -> LPState:
+    """One CLP iteration: the superstep of every colour class ``c`` in
+    order, with ``draw(c)``'s draws.  The moved counts are summed on the
+    device; the returned state carries the iteration's total."""
+    moved = torch.zeros((), dtype=torch.int32, device=state.labels.device)
+    for c in range(num_colors):
+        state = lp_round_colored(state, draw(c), bv, node_w, max_label_weights,
+                                 colors == c, num_labels=num_labels,
+                                 allow_tie_moves=allow_tie_moves)
+        moved = moved + state.num_moved
+    return state._replace(num_moved=moved)
+
+
 def cluster_isolated_nodes(state: LPState, row_ptr, node_w, max_label_weights, *,
                            num_labels: int) -> LPState:
     """Pack isolated (degree-0) nodes by prefix weight into clusters of

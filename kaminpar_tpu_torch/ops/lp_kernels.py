@@ -56,6 +56,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel since the last reset_launches().
 LAUNCHES = {"lp_rate": 0, "lp_rate_compressed": 0, "lp_commit": 0}
+# The same launches of the two rating kernels split by their flags, keyed
+# by rate_mode(external_only, respect_caps): JET's find step is the only
+# caller of (external_only, no caps).
+RATE_MODES = {}
 # What the last build printed (ptxas register/shared-memory/spill lines)
 # and how long it took; empty when the library came from an earlier build.
 BUILD_INFO = {"seconds": None, "log": ""}
@@ -73,11 +77,19 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        RATE_MODES.clear()
 
 
-def _count_launch(name: str) -> None:
+def rate_mode(external_only: bool, respect_caps: bool) -> str:
+    return f"external_only={int(external_only)},respect_caps={int(respect_caps)}"
+
+
+def _count_launch(name: str, mode: Optional[str] = None) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
+        if mode is not None:
+            key = f"{name}:{mode}"
+            RATE_MODES[key] = RATE_MODES.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -281,7 +293,7 @@ def rate_bucket(labels, node_w, label_weights, max_label_weights, bucket, tie, *
         _ptr(target), _ptr(tconn), _ptr(own_conn), _ptr(has), _stream_ptr(dev),
     )
     _raise_on(err, "kp_rate_bucket")
-    _count_launch("lp_rate")
+    _count_launch("lp_rate", rate_mode(external_only, respect_caps))
     return target, tconn, own_conn, has
 
 
@@ -338,7 +350,7 @@ def rate_compressed_bucket(labels, node_w, label_weights, max_label_weights,
         _ptr(has), _stream_ptr(dev),
     )
     _raise_on(err, "kp_rate_compressed_bucket")
-    _count_launch("lp_rate_compressed")
+    _count_launch("lp_rate_compressed", rate_mode(external_only, respect_caps))
     return target, tconn, own_conn, has
 
 

@@ -215,7 +215,7 @@ class DeepMultilevelPartitioner:
         min_bw = (self.ctx.partition.min_block_weights
                   if cur_k == self.ctx.partition.k else None)
         p_graph = PartitionedGraph.create(graph, cur_k, part, max_bw, min_bw)
-        return create_refiner(self.ctx).refine(p_graph)
+        return create_refiner(self.ctx, coarse_level=coarse).refine(p_graph)
 
     def partition(self) -> PartitionedGraph:
         ctx = self.ctx

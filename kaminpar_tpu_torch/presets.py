@@ -1,5 +1,7 @@
-"""Named presets: ``default``, ``fast``, ``terapart``, ``largek``,
-``largek-fast`` and ``terapart-largek`` (as in ``kaminpar_tpu/presets.py``)."""
+"""Named presets of the deep scheme (as in ``kaminpar_tpu/presets.py``):
+``default``, ``fast``, ``eco``, ``eco-devext``, ``strong``, ``jet``,
+``4xjet``, ``noref``, the largek and terapart variants, and the rename
+aliases ``fm``, ``flow`` and ``esa21-*``."""
 
 from __future__ import annotations
 
@@ -45,6 +47,83 @@ def create_fast_context() -> Context:
     return ctx
 
 
+def create_eco_context() -> Context:
+    """Overload balancer, LP, k-way FM, overload balancer (and the underload
+    balancer)."""
+    ctx = create_default_context()
+    ctx.preset_name = "eco"
+    ctx.refinement.algorithms = (
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.LP,
+        RefinementAlgorithm.KWAY_FM,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    )
+    return ctx
+
+
+def create_eco_devext_context() -> Context:
+    """eco with device extension, the best of 2 attempts."""
+    ctx = create_eco_context()
+    ctx.preset_name = "eco-devext"
+    ctx.initial_partitioning.device_extension = True
+    ctx.initial_partitioning.device_extension_reps = 2
+    return ctx
+
+
+def create_strong_context() -> Context:
+    """The eco chain with JET before FM: JET's temperature-admitted
+    negative moves open new basins, and FM, the last quality refiner, only
+    descends."""
+    ctx = create_eco_context()
+    ctx.preset_name = "strong"
+    ctx.refinement.algorithms = (
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.LP,
+        RefinementAlgorithm.JET,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.KWAY_FM,
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    )
+    return ctx
+
+
+def create_jet_context(num_rounds: int = 1) -> Context:
+    """JET as the only refiner (it balances internally), num_rounds chained
+    invocations ("4xjet": 4)."""
+    ctx = create_default_context()
+    ctx.preset_name = "jet" if num_rounds == 1 else f"{num_rounds}xjet"
+    ctx.refinement.algorithms = (
+        RefinementAlgorithm.JET,
+        RefinementAlgorithm.UNDERLOAD_BALANCER,
+    )
+    ctx.refinement.jet.num_rounds = num_rounds
+    return ctx
+
+
+def create_noref_context() -> Context:
+    """No refinement at all."""
+    ctx = create_default_context()
+    ctx.preset_name = "noref"
+    ctx.refinement.algorithms = ()
+    return ctx
+
+
+def create_largek_eco_context() -> Context:
+    """largek with the eco chain."""
+    ctx = _apply_largek_delta(create_eco_context())
+    ctx.preset_name = "largek-eco"
+    return ctx
+
+
+def create_largek_strong_context() -> Context:
+    """largek with the strong chain."""
+    ctx = _apply_largek_delta(create_strong_context())
+    ctx.preset_name = "largek-strong"
+    return ctx
+
+
 def create_terapart_context() -> Context:
     """The memory tier: the default pipeline over a compressed input graph,
     the finest level running off the device-resident compressed stream."""
@@ -69,6 +148,16 @@ def create_largek_fast_context() -> Context:
     return ctx
 
 
+def create_terapart_eco_context() -> Context:
+    """eco over a compressed input graph, as terapart; JET and FM run on the
+    finest level's decoded CSR."""
+    ctx = create_eco_context()
+    ctx.preset_name = "terapart-eco"
+    ctx.compression.enabled = True
+    ctx.compression.device_decode = "auto"
+    return ctx
+
+
 def create_terapart_largek_context() -> Context:
     """largek over a compressed input graph, as terapart."""
     ctx = _apply_largek_delta(create_default_context())
@@ -81,10 +170,26 @@ def create_terapart_largek_context() -> Context:
 _PRESETS = {
     "default": create_default_context,
     "fast": create_fast_context,
-    "terapart": create_terapart_context,
+    "eco": create_eco_context,
+    "eco-devext": create_eco_devext_context,
+    "fm": create_eco_context,  # rename alias
+    "strong": create_strong_context,
+    "flow": create_strong_context,  # rename alias
+    "jet": create_jet_context,
+    "4xjet": lambda: create_jet_context(4),
+    "noref": create_noref_context,
     "largek": create_largek_context,
     "largek-fast": create_largek_fast_context,
+    "largek-eco": create_largek_eco_context,
+    "largek-strong": create_largek_strong_context,
+    "terapart": create_terapart_context,
+    "terapart-eco": create_terapart_eco_context,
     "terapart-largek": create_terapart_largek_context,
+    # the ESA'21 deep multilevel configurations, rename aliases
+    "esa21-smallk": create_default_context,
+    "esa21-largek": create_largek_context,
+    "esa21-largek-fast": create_largek_fast_context,
+    "esa21-strong": create_strong_context,
 }
 
 

@@ -787,3 +787,117 @@ def test_rmat_graph_built_on_the_card_equals_the_host_build(cuda):
     for name in ("row_ptr", "col_idx", "node_w", "edge_w", "edge_u"):
         assert torch.equal(getattr(host, name), getattr(built, name)), name
 
+
+
+# -- the quality refiners: JET, the colouring, colored LP and FM -----------
+
+
+def random_blocks(pv, k, gen):
+    part = torch.zeros(pv.n_pad, dtype=torch.int32)
+    part[: pv.n] = torch.randint(0, k, (pv.n,), generator=gen, dtype=torch.int32)
+    return part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat", "hub"])
+def test_jet_round_coloring_and_clp_on_card_match_cpu(cuda, name):
+    """One JET move round (kernel #1 in its find mode), one colouring and
+    one colored LP iteration (kernel #3 with colour-class masks) on the
+    card equal the plain versions on the CPU with the same draws."""
+    from kaminpar_tpu_torch.ops import bucketed_gains, coloring
+    from kaminpar_tpu_torch.refinement import jet
+
+    g = make_graph(name)
+    pv, bv = g.padded(), g.bucketed()
+    dg = g.to(cuda)
+    dpv, dbv = dg.padded(), dg.bucketed()
+    gen = torch.Generator().manual_seed(8)
+    k = 8
+    labels = random_blocks(pv, k, gen)
+    locked = torch.zeros(pv.n_pad, dtype=torch.bool)
+    locked[: pv.n] = torch.rand(pv.n, generator=gen) < 0.2
+    max_bw = torch.full((k,), int(g.total_node_weight / k * 1.03) + 1, dtype=torch.int32)
+    ties = bucketed_gains.draw_ties(gen, bv)
+    lp_kernels.reset_launches()
+    ref = jet._jet_move_round(labels, locked, ties, bv, pv.node_w, max_bw, 0.75, k=k)
+    out = jet._jet_move_round(labels.to(cuda), locked.to(cuda), to(ties, cuda), dbv,
+                              dpv.node_w, max_bw.to(cuda), 0.75, k=k)
+    assert_equal(ref, out, "JET move round")
+    assert int(ref[1].sum()) > 0
+    assert lp_kernels.RATE_MODES["lp_rate:" + lp_kernels.rate_mode(True, False)] == len(bv.buckets)
+
+    prios = [torch.randint(0, I32MAX, (pv.n_pad,), generator=gen, dtype=torch.int32)
+             for _ in range(64)]
+    mask = torch.arange(pv.n_pad) < pv.n
+    colors, rounds = coloring.color_graph(lambda i: prios[i], pv.edge_u, pv.col_idx, mask,
+                                          n=pv.n_pad)
+    dcolors, drounds = coloring.color_graph(lambda i: prios[i].to(cuda), dpv.edge_u,
+                                            dpv.col_idx, mask.to(cuda), n=pv.n_pad)
+    assert torch.equal(colors, dcolors.cpu()) and rounds == drounds, "colouring"
+    assert bool((colors >= 0).all())
+    u, v = g.edge_u.long(), g.col_idx.long()
+    assert not bool(((colors[u] == colors[v]) & (u != v)).any())
+
+    nc = int(coloring.num_colors_device(colors, mask))
+    L = lp.num_labels_bucket(k)
+    caps = torch.zeros(L, dtype=torch.int32)
+    caps[:k] = int(g.total_node_weight / k * 1.05) + 1
+    rounds = [lp.draw_lp_round(gen, bv, pv.n_pad, allow_tie_moves=True) for _ in range(nc)]
+    lp_kernels.reset_launches()
+    ref = lp.clp_iterate_colors(lp.init_state(labels, pv.node_w, L), lambda c: rounds[c],
+                                bv, pv.node_w, caps, colors, nc, num_labels=L)
+    out = lp.clp_iterate_colors(lp.init_state(labels.to(cuda), dpv.node_w, L),
+                                lambda c: to(rounds[c], cuda), dbv, dpv.node_w,
+                                caps.to(cuda), dcolors, nc, num_labels=L)
+    assert_equal(ref, out, "CLP iteration")
+    assert int(ref.num_moved) > 0 and lp_kernels.LAUNCHES["lp_commit"] == nc
+
+
+@pytest.mark.cuda
+def test_fm_refiner_on_card_equals_cpu(cuda, monkeypatch):
+    """FM is a host pass: on a CUDA partitioned graph it reads the graph
+    off the card and gives the CPU graph's partition, back on the card."""
+    from kaminpar_tpu_torch.context import FMContext
+    from kaminpar_tpu_torch.graph.partitioned import PartitionedGraph
+    from kaminpar_tpu_torch.refinement import fm_refiner
+    from kaminpar_tpu_torch.utils import RandomState
+
+    g = generators.grid2d_graph(40, 40)
+    k = 4
+    gen = torch.Generator().manual_seed(3)
+    part = (torch.arange(g.n) * k // g.n).to(torch.int32)
+    flip = torch.rand(g.n, generator=gen) < 0.05
+    part[flip] = torch.randint(0, k, (int(flip.sum()),), generator=gen, dtype=torch.int32)
+    max_bw = np.full(k, int(g.n / k * 1.05) + 1)
+    max_bw = np.maximum(max_bw, np.bincount(part.numpy(), minlength=k))
+    outs = []
+    for graph in (g, g.to(cuda)):
+        monkeypatch.setattr(RandomState, "numpy_rng", lambda: np.random.default_rng(5))
+        outs.append(fm_refiner.FMRefiner(FMContext()).refine(
+            PartitionedGraph.create(graph, k, part, max_bw)))
+    assert outs[1].partition.device.type == "cuda"
+    assert torch.equal(outs[0].partition, outs[1].partition.cpu())
+    assert outs[0].edge_cut() < PartitionedGraph.create(g, k, part, max_bw).edge_cut()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["jet", "strong"])
+def test_quality_presets_on_card(cuda, preset):
+    """jet and strong on the card: feasible, JET rounds on every refined
+    level, kernel #1 launched in JET's find mode; strong's FM ran."""
+    from kaminpar_tpu_torch.refinement import fm_refiner, jet
+
+    g = generators.rmat_graph(12, 8, seed=1)
+    lp_kernels.reset_launches()
+    jet.reset_jet_stats()
+    fm_refiner.reset_fm_stats()
+    solver = kp.KaMinPar(preset)
+    solver.set_graph(g)
+    part = solver.compute_partition(8)
+    assert solver.last_partition.is_feasible() and len(np.unique(part)) == 8
+    stats = jet.jet_stats_snapshot()
+    assert stats["calls"] >= solver.last_partitioner.num_levels + 1
+    assert stats["min_rounds"] >= 1
+    assert lp_kernels.RATE_MODES["lp_rate:" + lp_kernels.rate_mode(True, False)] > 0
+    if preset == "strong":
+        assert fm_refiner.fm_stats_snapshot()["passes"] > 0

@@ -593,6 +593,7 @@ def test_wrappers_route_by_device_and_count_only_kernel_launches():
     tlp.lp_round_bucketed(ts, draws, tbv, tg.padded().node_w,
                           torch.tensor(9, dtype=torch.int32), num_labels=n_pad)
     assert lp_kernels.LAUNCHES == {"lp_rate": 0, "lp_rate_compressed": 0, "lp_commit": 0}
+    assert lp_kernels.RATE_MODES == {}
     b = tbv.buckets[0]
     meta = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
