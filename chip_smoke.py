@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                 # largek at RMAT scale 22, terapart and jet 20,
-                                          # default 18, strong 14
+    python3 chip_smoke.py                 # largek at RMAT scale 22; terapart, jet, kway
+                                          # and linear-time-kway 20; default and vcycle
+                                          # 18; the scheme checks 16; strong 14
     python3 chip_smoke.py --scale 16      # a quicker run
     python3 chip_smoke.py --path-scale 22 # terapart at scale 22 too
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
@@ -72,10 +73,34 @@ which fails the run when it fails:
    ``rmat_graph(STRONG_SCALE)``, a small functional check of the preset:
    feasible, all blocks used, the cut below 0.95x random, FM's passes
    (> 0) and host seconds printed;
+6e. kway path: ``KaMinPar("kway").compute_partition(k)`` on the terapart
+   path's graph, counters and peaks as in 4; feasible, all k blocks used,
+   the cut below 0.95x random, both kernels run, every bisection on the
+   device pool, the coarsest graph at most max(C·k, 2C) nodes (unless
+   coarsening converged first) and partitioned into k blocks at once; its
+   phase split, levels, coarsest graph, peak and cut over the terapart
+   path's printed; then kernels #1 (refinement flags, ``L = k``) and #3 on
+   its coarsest level (kept as the path refined it, ``RefineCapture``)
+   and on its finest graph with its final partition, each compared with
+   its plain version and timed;
+6f. linear-time-kway path: the same with ``KaMinPar("linear-time-kway")``
+   (2 LP sweeps a level, threshold sparsification); at least one level
+   must have been sparsified, and the sparsifier's counts (levels, edges
+   before and after) are printed; then kernels #1 and #3 as in 6e on the
+   finest sparsified level, with the partition refined there;
+6g. scheme checks on ``rmat_graph(SCHEME_SCALE)`` into k blocks, each
+   feasible, all blocks used, cut below random, both kernels run, every
+   bisection on the device pool: ``restricted-vcycle`` with one
+   intermediate cycle at k = 4, recursive bisection (every subgraph built
+   on the card), ``default`` with HEM coarsening (no level shrinking by
+   more than 2x) and ``kway`` with two overlaid clusterings;
 6d. round reference, on a small graph: one whole LP round, one balancer
    round, one underload round, one group-restricted balancer round, one
    JET move round, one colouring and one colored LP iteration on the card
    are compared with the plain versions on the CPU, with the same draws;
+   then one HEM round and a HEM clustering, one overlay intersection, and
+   the restricted v-cycle's revert with its restricted rebalance, each on
+   the card against the CPU with the same draws;
 7. default path: ``KaMinPar("default").compute_partition(k)`` on
    ``rmat_graph(scale - 4)``, counters and peaks as in 4; the partition must be
    feasible, use all k blocks and cut less than 0.95x the edge weight a
@@ -88,6 +113,9 @@ which fails the run when it fails:
    ``extension_jobs``: their counts) and the bipartition pool's stats
    (its ``wall_s`` is summed over calls, which overlap too); every
    bisection of every path must have run on the device pool;
+7a. vcycle path: ``KaMinPar("vcycle")`` with one intermediate cycle at
+   k = 4 into k blocks of the default path's graph, as 7: both cycles ran,
+   and the cut at most 1.25x the default path's;
 8. the device bipartition pool on the default path's coarsest graph (its
    first bisection): on the card and on the CPU from the same recorded
    draws, labels and stats equal; the lane loop on the card with host
@@ -180,6 +208,18 @@ CLP_MAX_MONOCHROMATIC_SHARE = 0.2
 # is timed alone, its work bounded to FM_PASS_WORK_FACTOR x n.
 STRONG_SCALE = 14
 FM_PASS_WORK_FACTOR = 0.25
+# The other schemes' small functional checks (restricted v-cycle, recursive
+# bisection, HEM coarsening, overlay clustering) run on rmat_graph(16) into
+# K blocks; the v-cycle paths run one intermediate cycle at k = 4.
+SCHEME_SCALE = 16
+VCYCLES = (4,)
+# The v-cycle path's cut may be at most this much above the default path's
+# on the same graph (the JAX package's own bound, tests/test_vcycle.py).
+VCYCLE_CUT_BOUND = 1.25
+# HEM coarsening on RMAT shrinks a level by less than the default 5%
+# convergence threshold (hubs match at most one neighbour); the HEM check
+# lowers it to 1%, as the CPU parity cell does, so that HEM builds levels.
+HEM_CONVERGENCE = 0.01
 
 
 def log(msg: str) -> None:
@@ -1185,6 +1225,82 @@ class CoarsestCapture:
         self._deep.recursive_bipartition = self._orig
 
 
+class RefineCapture:
+    """Keeps host copies of two levels a single-shot k-way run refines, each
+    with the partition its refiner returned there and the block caps: the
+    coarsest (the first refine call) and the finest level the coarsener
+    sparsified (the last refine call on a graph ``sparsify_threshold``
+    returned).  The copies fall inside the path's wall; their seconds are
+    counted in ``seconds``."""
+
+    def __enter__(self):
+        import weakref
+
+        import numpy as np
+
+        from kaminpar_tpu_torch.coarsening import cluster_coarsener
+        from kaminpar_tpu_torch.partitioning import kway
+
+        self._mods = (kway, cluster_coarsener)
+        self._orig = (kway.create_refiner, cluster_coarsener.sparsify_threshold)
+        sparsified = weakref.WeakSet()
+        self.levels = {}
+        self.seconds = 0.0
+
+        def keep(name, p_graph):
+            t0 = time.perf_counter()
+            g = p_graph.graph
+            self.levels[name] = dict(
+                csr=[x.cpu().numpy() for x in (g.row_ptr, g.col_idx, g.node_w, g.edge_w)],
+                part=p_graph.partition.cpu().numpy(),
+                caps=np.asarray(p_graph.max_block_weights))
+            self.seconds += time.perf_counter() - t0
+
+        def sparsify(graph, target_m):
+            out = self._orig[1](graph, target_m)
+            sparsified.add(out)
+            return out
+
+        def create_refiner(ctx, **kwargs):
+            refiner = self._orig[0](ctx, **kwargs)
+            inner = refiner.refine
+
+            def refine(p_graph):
+                first = not self.levels
+                out = inner(p_graph)
+                if first:
+                    keep("coarsest", out)
+                if p_graph.graph in sparsified:
+                    keep("sparsified", out)
+                return out
+
+            refiner.refine = refine
+            return refiner
+
+        kway.create_refiner = create_refiner
+        cluster_coarsener.sparsify_threshold = sparsify
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0].create_refiner, self._mods[1].sparsify_threshold = self._orig
+
+
+def phase_captured_kernels(cap: RefineCapture, level: str, path: str, device, k: int):
+    """Kernels #1 and #3 (``phase_refine_kernels``) on a level a k-way path
+    refined, rebuilt on the card from its ``RefineCapture`` copy, with the
+    partition the path's refiner returned there."""
+    from kaminpar_tpu_torch.graph.csr import from_numpy_csr
+
+    if level not in cap.levels:
+        raise AssertionError(f"the {path} path refined no {level} level")
+    saved = cap.levels[level]
+    g = from_numpy_csr(*saved["csr"], device=device)
+    return phase_refine_kernels(
+        g, saved["part"], saved["caps"], device, k,
+        f"the {path} path's {level} level ({g.n} nodes, {g.m} edges), the partition "
+        "its refiner returned there", seed=14)
+
+
 def device_activity(fn):
     """Device events (kernels, memsets, copies) that one call of ``fn``
     launches and the device milliseconds they take, traced with
@@ -1282,14 +1398,20 @@ def phase_pool(cap, device):
     return info
 
 
+SCHEME_STATS = ("level_n", "converged", "sparsification", "cycles", "bisections",
+                "subgraph_devices")
+
+
 def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bound: float,
-                     capture=None):
-    """``KaMinPar(preset).compute_partition(k)`` on the card, with the launch
-    counters and pool stats set to 0 just before and read just after and
-    the peaks tracked (and ``capture`` entered, if given); logs the path's
-    line and checks it: feasible, all k blocks used, the cut below
-    ``cut_bound`` x a random partition's, both dense-path kernels run and
-    every bisection on the device pool.  Returns (line, solver, partition)."""
+                     capture=None, configure=None):
+    """``KaMinPar(preset).compute_partition(k)`` on the card (its context
+    changed by ``configure``, if given), with the launch counters and pool
+    stats set to 0 just before and read just after and the peaks tracked
+    (and ``capture`` entered, if given); logs the path's line, with the
+    scheme's own stats (``SCHEME_STATS``), and checks it: feasible, all k
+    blocks used, the cut below ``cut_bound`` x a random partition's, both
+    dense-path kernels run and every bisection on the device pool.
+    Returns (line, solver, partition)."""
     import contextlib
 
     import torch
@@ -1299,6 +1421,8 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
     from kaminpar_tpu_torch.refinement import fm_refiner, jet
 
     solver = kp.KaMinPar(preset)  # no device: cuda:0
+    if configure is not None:
+        configure(solver.ctx)
     solver.set_graph(graph)
     with PeakTracker() as mem, capture or contextlib.nullcontext():
         lp_kernels.reset_launches()
@@ -1324,11 +1448,16 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
                 random_cut_expected=int(total_ew * (1 - 1 / k)), feasible=feasible,
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
                 wall_s=wall, peak_bytes=mem.peak, peak_outside_bytes=mem.outside,
-                peak_calls=mem.calls, levels=part_info.num_levels,
-                coarsest=part_info.coarsest, phase_s=part_info.phase_seconds,
-                extension_jobs=part_info.extension_jobs, pool=pool, launches=launches,
-                rate_modes=rate_modes, jet=jet_stats, fm=fm_stats,
+                peak_calls=mem.calls, scheme=type(part_info).__name__,
+                levels=getattr(part_info, "num_levels", None),
+                coarsest=getattr(part_info, "coarsest", None),
+                phase_s=part_info.phase_seconds,
+                extension_jobs=getattr(part_info, "extension_jobs", {}), pool=pool,
+                launches=launches, rate_modes=rate_modes, jet=jet_stats, fm=fm_stats,
                 commit_calls=mem.commit_log(preset))
+    info.update({key: dict(getattr(part_info, key)) if key == "subgraph_devices"
+                 else getattr(part_info, key)
+                 for key in SCHEME_STATS if hasattr(part_info, key)})
     log(json.dumps(info))
     check_pool_served(pool, preset)
     if not feasible:
@@ -1372,13 +1501,14 @@ def phase_largek_path(graph, k: int, eps: float):
     return info, part, solver.last_partition.max_block_weights
 
 
-def phase_largek_kernels(work, part, max_bw, device, k: int):
-    """Kernels #1 and #3 on the largek path's own data at ``L = k``: its
-    final partition as labels on its finest graph, caps as ``LPRefiner``
-    builds them and a refinement round's draws (active_prob 1.0, no tie
-    moves).  The rating kernel against its plain version on every bucket
-    and timed as one pass; the commit on the rated moves against both
-    plain auctions, twice, and timed."""
+def phase_refine_kernels(work, part, max_bw, device, k: int, source: str, seed: int = 12):
+    """Kernels #1 and #3 in LP refinement's instantiation on a path's own
+    data (``source`` names it): ``part`` as labels on ``work``, caps as
+    ``LPRefiner`` builds them at ``L = num_labels_bucket(k)`` and a
+    refinement round's draws (active_prob 1.0, no tie moves).  The rating
+    kernel against its plain version on every bucket and timed as one
+    pass; the commit on the rated moves against both plain auctions,
+    twice, and timed.  All exact."""
     import numpy as np
     import torch
 
@@ -1390,7 +1520,7 @@ def phase_largek_kernels(work, part, max_bw, device, k: int):
     state = lp.init_state(labels, pv.node_w, L)
     caps = torch.zeros(L, dtype=torch.int32, device=device)
     caps[:k] = torch.as_tensor(np.asarray(max_bw), dtype=torch.int32)
-    gen = torch.Generator(device=device).manual_seed(12)
+    gen = torch.Generator(device=device).manual_seed(seed)
     draws = lp.draw_lp_round(gen, bv, pv.n_pad)
     flags = dict(external_only=False, respect_caps=True, tie_break="uniform")
     args = (labels, pv.node_w, state.label_weights, caps)
@@ -1401,7 +1531,8 @@ def phase_largek_kernels(work, part, max_bw, device, k: int):
         err = max(err, max_abs_err(ref, rate_dense(*args, bv, i, tie, **flags)))
         if err:
             raise AssertionError(f"rating kernel != plain at L = {L}, w={b.cols.shape[1]}")
-    log(f"  rate refine L={L} (largek path data): equal on {len(bv.buckets)} buckets")
+    log(f"  rate refine L={L} ({source}, n={pv.n}, m={work.m}): equal on "
+        f"{len(bv.buckets)} buckets")
 
     def kernel_pass():
         for i, tie in enumerate(draws.ties):
@@ -1418,8 +1549,8 @@ def phase_largek_kernels(work, part, max_bw, device, k: int):
                for (R, w), real in zip(shapes, bv.real_rows)]
     bound_ms, bound_by, _ = pass_bounds(buckets, table_bytes(pv.n_pad, L, L))
     rate = dict(
-        kernel="lp_rate", what=f"one rating pass over all buckets of the largek path's "
-        f"finest graph, refinement instantiation at L = {L}, its final partition",
+        kernel="lp_rate", what=f"one rating pass over all buckets of {source}, "
+        f"refinement instantiation at L = {L}",
         n=pv.n_pad, L=L, kernel_ms=cuda_time_ms(kernel_pass, iters=20),
         host_paced_ms=cuda_time_ms(kernel_pass, iters=20, sleep_ahead=False),
         plain_ms=cuda_time_ms(plain_pass, iters=3, warmup=1), bound_ms=bound_ms,
@@ -1428,11 +1559,10 @@ def phase_largek_kernels(work, part, max_bw, device, k: int):
     target, tconn, own, _ = lp.best_moves(labels, bv, pv.node_w, state.label_weights, caps,
                                           draws.ties, draws.heavy_tie, **flags)
     call = (state, target, tconn, own, pv.node_w, caps, L, draws.prio, None, None)
-    err = check_commit(f"refine (path data), largek finest level, L={L}", call,
-                       REFINE_OPTS, (True, False))
-    commit = time_commit(call, err, REFINE_OPTS, f"the largek path's finest level, "
-                         f"refinement instantiation (L = {L}), its final partition and "
-                         "rated moves")
+    err = check_commit(f"refine (path data), {source}, L={L}", call, REFINE_OPTS,
+                       (True, False))
+    commit = time_commit(call, err, REFINE_OPTS, f"{source}, refinement instantiation "
+                         f"(L = {L}), the rated moves")
     return rate, commit
 
 
@@ -1653,6 +1783,187 @@ def phase_strong_path(scale: int, k: int, eps: float):
     if fm["passes"] <= 0:
         raise AssertionError(f"FM ran no pass on the strong path: {fm}")
     return info
+
+
+def phase_kway_path(graph, preset: str, k: int, eps: float, terapart_cut: int,
+                    capture: RefineCapture, need_sparsified: bool = False):
+    """``KaMinPar(preset).compute_partition(k)`` for a single-shot k-way
+    preset (``kway`` or ``linear-time-kway``) on the terapart path's graph,
+    as the default path (``drive_dense_path``, cut bound 0.95); its
+    coarsest graph must have at most max(C·k, 2C) nodes unless coarsening
+    converged above it, and with ``need_sparsified`` at least one level
+    must have been sparsified.  Logs the phase split, levels, coarsest
+    graph, peak, the sparsifier's counts and the cut over the terapart
+    path's (the deep default pipeline's) on the same graph, and the seconds
+    ``capture`` took inside the wall; returns the path's line, its
+    partition and block caps."""
+    phase = preset.replace("-", "_") + "_path"
+    info, solver, part = drive_dense_path(preset, phase, graph, k, eps, 0.95, capture)
+    C = solver.ctx.coarsening.contraction_limit
+    target = max(C * k, 2 * C)
+    info["cut_over_terapart"] = info["cut"] / terapart_cut
+    log(json.dumps(dict(phase=phase + "_summary", wall_s=info["wall_s"],
+                        phase_s=info["phase_s"], levels=info["levels"],
+                        level_n=info["level_n"], coarsest=info["coarsest"],
+                        target_n=target, converged=info["converged"],
+                        peak_bytes=info["peak_bytes"], sparsification=info["sparsification"],
+                        cut=info["cut"], terapart_cut=terapart_cut,
+                        cut_over_terapart=info["cut_over_terapart"],
+                        capture_s=capture.seconds)))
+    if info["coarsest"]["n"] > target and not info["converged"]:
+        raise AssertionError(f"{preset} stopped coarsening above {target} nodes without "
+                             f"converging: {info['level_n']}")
+    if info["coarsest"]["k0"] != k:
+        raise AssertionError(f"{preset} did not partition its coarsest graph into k blocks")
+    if need_sparsified and info["sparsification"]["levels"] <= 0:
+        raise AssertionError(f"{preset} sparsified no level: {info['level_n']}")
+    return info, part, solver.last_partition.max_block_weights
+
+
+def set_vcycles(ctx):
+    ctx.vcycles = VCYCLES
+
+
+def phase_vcycle_path(graph, k: int, eps: float, default_cut: int):
+    """``KaMinPar("vcycle")`` with ``ctx.vcycles = VCYCLES`` into k blocks of
+    the default path's graph, as the default path (``drive_dense_path``);
+    both cycles must have run, and the cut may be at most
+    ``VCYCLE_CUT_BOUND`` x the default path's.  Returns the path's line."""
+    info, _, _ = drive_dense_path("vcycle", "vcycle_path", graph, k, eps, 0.95,
+                                  configure=set_vcycles)
+    info["cut_over_default"] = info["cut"] / default_cut
+    log(f"vcycle: cycles {[c['k'] for c in info['cycles']]}, wall {info['wall_s']:.3f} s, "
+        f"cut {info['cut']} = {info['cut_over_default']:.4f} x the default path's "
+        f"{default_cut}")
+    if [c["k"] for c in info["cycles"]] != [*VCYCLES, k]:
+        raise AssertionError(f"the v-cycle did not run its cycles: {info['cycles']}")
+    if info["cut"] > VCYCLE_CUT_BOUND * default_cut:
+        raise AssertionError(f"the v-cycle cut {info['cut']} is above "
+                             f"{VCYCLE_CUT_BOUND} x the default path's {default_cut}")
+    return info
+
+
+def phase_scheme_checks(graph, scale: int, k: int, eps: float) -> dict:
+    """Small functional checks of the other schemes on ``graph``, each
+    through ``drive_dense_path`` (feasible, all k blocks, both kernels,
+    every bisection on the device pool; the cut only below a random
+    partition's): ``restricted-vcycle`` (both cycles ran), recursive
+    bisection (``default`` in ``PartitioningMode.RB``: k - 1 bisections,
+    every subgraph a CUDA graph), ``default`` with HEM coarsening (at least
+    one level, none shrinking by more than 2x) and ``kway`` with
+    ``overlay_levels`` = 2 (at least one level).  Returns the lines."""
+    from kaminpar_tpu_torch.context import ClusteringAlgorithm, PartitioningMode
+
+    def rb(ctx):
+        ctx.mode = PartitioningMode.RB
+
+    def hem(ctx):
+        ctx.coarsening.algorithm = ClusteringAlgorithm.HEM
+        ctx.coarsening.convergence_threshold = HEM_CONVERGENCE
+
+    def overlay(ctx):
+        ctx.coarsening.overlay_levels = 2
+
+    out = {}
+    for name, preset, configure in (("restricted_vcycle", "restricted-vcycle", set_vcycles),
+                                    ("rb", "default", rb), ("hem", "default", hem),
+                                    ("kway_overlay", "kway", overlay)):
+        info, _, _ = drive_dense_path(preset, f"{name}_scale{scale}", graph, k, eps, 1.0,
+                                      configure=configure)
+        out[name] = info
+        if name == "restricted_vcycle" and [c["k"] for c in info["cycles"]] != [*VCYCLES, k]:
+            raise AssertionError(f"the restricted v-cycle did not run its cycles: "
+                                 f"{info['cycles']}")
+        if name == "rb" and (info["bisections"] != k - 1
+                             or set(info["subgraph_devices"]) != {"cuda:0"}):
+            raise AssertionError(f"recursive bisection: {info['bisections']} bisections, "
+                                 f"subgraphs on {info['subgraph_devices']}")
+        if name in ("hem", "kway_overlay") and info["levels"] < 1:
+            raise AssertionError(f"{name} built no coarse level")
+        n = info.get("level_n", [])
+        if name == "hem" and any(b < a / 2 for a, b in zip(n, n[1:])):
+            raise AssertionError(f"a HEM level shrank by more than 2x: {n}")
+    log("scheme checks (s): " + ", ".join(f"{name} {info['wall_s']:.3f}"
+                                          for name, info in out.items()))
+    return out
+
+
+def phase_scheme_round_reference(device):
+    """The new schemes' rounds through their entry points, on the card and
+    on the CPU with the same draws: one HEM round (and a whole HEM
+    clustering), one overlay intersection, and the restricted v-cycle's
+    ``_restrict`` with its ``_rebalance_restricted`` rounds."""
+    import numpy as np
+    import torch
+
+    from kaminpar_tpu_torch.coarsening import hem_clusterer as hem
+    from kaminpar_tpu_torch.coarsening.lp_clusterer import _intersect_clusterings
+    from kaminpar_tpu_torch.context import LabelPropagationContext
+    from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.graph.partitioned import PartitionedGraph
+    from kaminpar_tpu_torch.partitioning.deep import DeepMultilevelPartitioner
+    from kaminpar_tpu_torch.presets import create_context_by_preset_name
+    from kaminpar_tpu_torch.refinement import balancer
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        items = [None if v is None else to(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+    g = generators.rmat_graph(14, 16, seed=3)
+    dg = g.to(device)
+    pv, dpv = g.padded(), dg.padded()
+    gen = torch.Generator().manual_seed(6)
+    jitters = [hem.draw_hem_jitter(gen, pv) for _ in range(5)]
+    ids = torch.arange(pv.n_pad, dtype=torch.int32)
+    cap = torch.tensor(8, dtype=torch.int32)
+    ref = hem._hem_round(ids, jitters[0], pv, cap)
+    out = hem._hem_round(ids.to(device), jitters[0].to(device), dpv, cap.to(device))
+    clusterer = hem.HEMClustering(LabelPropagationContext())
+    cref = clusterer.compute_clustering(g, 8, draw=lambda r: jitters[r])
+    cout = clusterer.compute_clustering(dg, 8, draw=lambda r: jitters[r].to(device))
+    if max_abs_err((ref, cref), (out, cout)):
+        raise AssertionError("HEM on the card != HEM on the CPU")
+    la = torch.randint(0, 64, (pv.n_pad,), generator=gen, dtype=torch.int32)
+    lb = torch.randint(0, 64, (pv.n_pad,), generator=gen, dtype=torch.int32)
+    iref = _intersect_clusterings(la, lb)
+    iout = _intersect_clusterings(la.to(device), lb.to(device))
+    if max_abs_err((iref,), (iout,)):
+        raise AssertionError("overlay intersection on the card != on the CPU")
+
+    # _restrict: 16 blocks under 4 communities, block 4c holding about half
+    # of community c, 15% of the nodes moved to random blocks; the reverted
+    # partition stays overloaded, so the restricted rebalance runs
+    k, ck = 16, 4
+    n = g.n
+    rng = np.random.default_rng(21)
+    comm = (np.arange(n) * ck // n).astype(np.int32)
+    pre = (4 * comm + np.where(rng.random(n) < 0.5, 0, rng.integers(1, 4, n))).astype(np.int32)
+    post = pre.copy()
+    moved = rng.random(n) < 0.15
+    post[moved] = rng.integers(0, k, int(moved.sum()))
+    caps = np.full(k, int(np.ceil(g.total_node_weight / k * 1.03)) + 1, dtype=np.int64)
+    mbv = g.community_masked(torch.from_numpy(comm)).bucketed()
+    draws = [balancer.draw_balance_round(gen, mbv, pv.n_pad) for _ in range(8)]
+    parts, moved_back = [], 0
+    for graph, dev_draw in ((g, lambda r: draws[r]), (dg, lambda r: to(draws[r]))):
+        ctx = create_context_by_preset_name("restricted-vcycle")
+        ctx.partition.k, ctx.partition.max_block_weights = k, caps
+        c = torch.as_tensor(comm, device=graph.device)
+        deep = DeepMultilevelPartitioner(ctx, graph, communities=c, communities_k=ck)
+        p = deep._restrict(PartitionedGraph.create(graph, k, post, caps), pre, k, c,
+                           draw=dev_draw)
+        parts.append(p)
+    if max_abs_err((parts[0].partition,), (parts[1].partition,)):
+        raise AssertionError("_restrict on the card != _restrict on the CPU")
+    part = parts[1].partition.cpu().numpy()
+    if (part // 4 != comm).any() or not parts[1].is_feasible():
+        raise AssertionError("_restrict left a node outside its community or an overload")
+    log(f"scheme round reference: rmat_graph(14, 16, seed=3): one HEM round (matched "
+        f"{int((out != ids.to(device)).sum())}) and a HEM clustering, one overlay "
+        f"intersection and one _restrict with its restricted rebalance ({int((part != pre).sum())} "
+        f"nodes off the partition before refinement) on the card equal the CPU's")
 
 
 def phase_min_weights(g, scale: int, k: int, eps: float):
@@ -1884,26 +2195,53 @@ def main() -> int:
     rate_j, commit_j = phase_jet_kernels(work, jpart, jcaps, device, K)
     cinfo = phase_clp(work, jpart, jcaps, device, K)
     phase_fm_pass(work, jpart, jcaps, device, K)
-    del work, graph, jpart
+    del work, jpart
+    torch.cuda.empty_cache()
+    kcap = RefineCapture()
+    kinfo, kpart, kcaps = phase_kway_path(graph, "kway", K, EPSILON, tinfo["cut"], kcap)
+    torch.cuda.empty_cache()
+    work = finest_graph(graph, K, device)
+    rate_kf, commit_kf = phase_refine_kernels(
+        work, work_partition(graph, kpart, K), kcaps, device, K,
+        "the kway path's finest graph, its final partition", seed=15)
+    del work, kpart
+    rate_kc, commit_kc = phase_captured_kernels(kcap, "coarsest", "kway", device, K)
+    del kcap
+    torch.cuda.empty_cache()
+    ltcap = RefineCapture()
+    ltinfo, _, _ = phase_kway_path(graph, "linear-time-kway", K, EPSILON, tinfo["cut"],
+                                   ltcap, need_sparsified=True)
+    rate_ls, commit_ls = phase_captured_kernels(ltcap, "sparsified", "linear-time-kway",
+                                                device, K)
+    del ltcap
+    del graph
     torch.cuda.empty_cache()
     sinfo = phase_strong_path(STRONG_SCALE, K, EPSILON)
+    torch.cuda.empty_cache()
+    sg = rmat(SCHEME_SCALE)
+    scheme_infos = phase_scheme_checks(sg, SCHEME_SCALE, K, EPSILON)
+    del sg
     torch.cuda.empty_cache()
 
     small = rmat(args.scale - 4)
     phase_off_vs_finest(small, args.scale - 4, OFF_FINEST_K, EPSILON)
     phase_round_reference(device)
+    phase_scheme_round_reference(device)
     info, coarsest = phase_main_path(small, K, EPSILON)
     phase_pool(coarsest, device)
+    torch.cuda.empty_cache()
+    vinfo = phase_vcycle_path(small, K, EPSILON, info["cut"])
     torch.cuda.empty_cache()
 
     graph = rmat(args.scale)
     linfo, lpart, lcaps = phase_largek_path(graph, LARGE_K, EPSILON)
     torch.cuda.empty_cache()
     work = finest_graph(graph, LARGE_K, device)
-    rate_l, commit_l = phase_largek_kernels(work, work_partition(graph, lpart, LARGE_K), lcaps,
-                                            device, LARGE_K)
-    rate["instances"] = [rate.copy(), rate_l, rate_j]
-    commit["instances"] += [commit_l, commit_j]
+    rate_l, commit_l = phase_refine_kernels(
+        work, work_partition(graph, lpart, LARGE_K), lcaps, device, LARGE_K,
+        "the largek path's finest graph, its final partition")
+    rate["instances"] = [rate.copy(), rate_l, rate_j, rate_kc, rate_kf, rate_ls]
+    commit["instances"] += [commit_l, commit_j, commit_kc, commit_kf, commit_ls]
     del work, graph
     torch.cuda.empty_cache()
     minfo = phase_min_weights(small, args.scale - 4, K, EPSILON)
@@ -1913,7 +2251,8 @@ def main() -> int:
     phase_small_reference()
 
     paths = dict(terapart=tinfo, default=info, largek=linfo, min_weights=minfo, jet=jinfo,
-                 clp=cinfo, strong=sinfo)
+                 clp=cinfo, strong=sinfo, kway=kinfo, linear_time_kway=ltinfo, vcycle=vinfo,
+                 **scheme_infos)
     kernels = []
     for meas, source, replaces in (
             (rate, RATE_SOURCE, RATE_REPLACES),

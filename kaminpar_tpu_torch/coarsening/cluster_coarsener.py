@@ -6,9 +6,16 @@ tier under ``device_decode="finest"``), level 0 is clustered and contracted
 straight off the compressed stream; the finest CSR is decoded on the
 device only when uncoarsening comes back to level 0.
 
-With communities (``set_communities``, device extension's current
-blocks), no cluster spans two communities: the clustering runs on the
-community-masked graph, and every level carries its nodes' communities.
+The clusterer is ``ctx.coarsening.algorithm``'s: LP (with
+``overlay_levels``), heavy-edge matching, or none (no level is built).
+With ``ctx.coarsening.sparsification.enabled`` a contracted level keeps
+only about target_m of its heaviest edges (``coarsening/sparsifier.py``)
+when it has more than ``laziness_factor`` x target_m.
+
+With communities (``set_communities``: device extension's current blocks,
+or the previous v-cycle's partition), no cluster spans two communities:
+the clustering runs on the community-masked graph, and every level
+carries its nodes' communities.
 """
 
 from __future__ import annotations
@@ -19,15 +26,17 @@ from typing import List, Optional
 
 import torch
 
-from ..context import Context
+from ..context import ClusteringAlgorithm, Context
 from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph
 from ..graph.device_compressed import DeviceCompressedView
 from ..ops.contraction import contract_clustering, contract_compressed, project_partition
 from ..ops.segment import segment_max
 from ..utils.logger import Logger, OutputLevel
+from .hem_clusterer import HEMClustering
 from .lp_clusterer import LPClustering
 from .max_cluster_weights import compute_max_cluster_weight
+from .sparsifier import sparsify_threshold
 
 
 @dataclass
@@ -48,15 +57,26 @@ class ClusterCoarsener:
         self._compressed: Optional[CompressedGraph] = None
         self._device = None
         self.hierarchy: List[CoarseLevel] = []
-        pinned = ctx.coarsening.lp.weighted_mode
-        if pinned is not None:
-            weighted = bool(pinned)
+        algorithm = ctx.coarsening.algorithm
+        if algorithm == ClusteringAlgorithm.LP:
+            pinned = ctx.coarsening.lp.weighted_mode
+            if pinned is not None:
+                weighted = bool(pinned)
+            else:
+                src = graph if graph is not None else compressed_view.cg
+                weighted = not src.has_uniform_edge_weights()
+            self.clusterer = LPClustering(ctx.coarsening.lp, ctx.coarsening.overlay_levels,
+                                          weighted_graph=weighted)
+        elif algorithm == ClusteringAlgorithm.HEM:
+            self.clusterer = HEMClustering(ctx.coarsening.lp)
         else:
-            src = graph if graph is not None else compressed_view.cg
-            weighted = not src.has_uniform_edge_weights()
-        self.clusterer = LPClustering(ctx.coarsening.lp, weighted_graph=weighted)
+            self.clusterer = None
         self.input_communities: Optional[torch.Tensor] = None
-        self._masked_clusterer: Optional[LPClustering] = None
+        self._masked_clusterer = None
+        # Levels sparsified, and their edges before and after; whether a
+        # level shrank by less than the convergence threshold.
+        self.sparsification = {"levels": 0, "edges_before": 0, "edges_after": 0}
+        self.converged = False
 
     def set_communities(self, communities: torch.Tensor) -> None:
         """Restrict clustering to ``communities`` ((n,) int32 per input
@@ -71,11 +91,16 @@ class ClusterCoarsener:
                              "compressed view")
         self.input_communities = torch.as_tensor(
             communities, device=self.input_graph.device).to(torch.int32)
-        self._masked_clusterer = LPClustering(
-            dataclasses.replace(self.ctx.coarsening.lp, cluster_isolated_nodes=False,
-                                cluster_two_hop_nodes=False),
-            weighted_graph=self.clusterer.weighted_graph,
-        )
+        if isinstance(self.clusterer, LPClustering):
+            self._masked_clusterer = LPClustering(
+                dataclasses.replace(self.ctx.coarsening.lp, cluster_isolated_nodes=False,
+                                    cluster_two_hop_nodes=False),
+                self.ctx.coarsening.overlay_levels,
+                weighted_graph=self.clusterer.weighted_graph,
+            )
+        else:
+            # HEM's eligibility already needs an edge weight above 0
+            self._masked_clusterer = self.clusterer
 
     def release_input_graph(self, compressed: CompressedGraph) -> None:
         """Drop the finest level once coarse levels exist: while the
@@ -124,7 +149,10 @@ class ClusterCoarsener:
 
     def coarsen_once(self, k: int, epsilon: float) -> bool:
         """One level; False when it shrank by less than the convergence
-        threshold (the level is then not pushed)."""
+        threshold (the level is then not pushed), or when there is no
+        clusterer."""
+        if self.clusterer is None:
+            return False
         # Level 0 off the compressed view: the finest CSR is not decoded.
         off_stream = not self.hierarchy and self.input_graph is None
         src = self.input_cview if off_stream else self.current_graph
@@ -147,18 +175,40 @@ class ClusterCoarsener:
                 src.community_masked(comm), max_cw)
         contract = contract_compressed if off_stream else contract_clustering
         coarse, coarse_of = contract(src, labels)
+        coarse_m = coarse.m
+        coarse = self._sparsify(coarse, n_cur, m_cur)
         Logger.log(
             f"  coarsening level {len(self.hierarchy)}: n={n_cur} -> {coarse.n}, "
             f"m={m_cur} -> {coarse.m} (max_cw={max_cw})",
             OutputLevel.DEBUG,
         )
         if 1.0 - coarse.n / max(n_cur, 1) < self.ctx.coarsening.convergence_threshold:
+            self.converged = True
             return False
+        if coarse.m < coarse_m:
+            self.sparsification["levels"] += 1
+            self.sparsification["edges_before"] += coarse_m
+            self.sparsification["edges_after"] += coarse.m
         # Clusters never span communities: any member's community is the
         # cluster's.
         coarse_comm = None if comm is None else segment_max(comm, coarse_of, coarse.n)
         self.hierarchy.append(CoarseLevel(coarse, coarse_of, coarse_comm))
         return True
+
+    def _sparsify(self, coarse: CSRGraph, n: int, m: int) -> CSRGraph:
+        """Threshold sparsification of a level contracted from n nodes and m
+        edges: target_m = min(edge_target x m, density_target x m/n x n_c),
+        at most the level's edges; only when target_m >= 2 and the level
+        has more than laziness x target_m edges."""
+        s_ctx = self.ctx.coarsening.sparsification
+        if not s_ctx.enabled or coarse.m == 0:
+            return coarse
+        target_m = min(s_ctx.edge_target_factor * m,
+                       s_ctx.density_target_factor * m / max(n, 1) * coarse.n)
+        target_m = int(min(target_m, coarse.m))
+        if target_m >= 2 and coarse.m > s_ctx.laziness_factor * target_m:
+            return sparsify_threshold(coarse, target_m)
+        return coarse
 
     def coarsen(self, k: int, epsilon: float, target_n: int) -> CSRGraph:
         """Coarsen until n <= target_n or convergence."""

@@ -7,6 +7,11 @@ early exit, then isolated-node and two-hop clustering.  The graph is a
 CSRGraph, or at the finest level of the TeraPart tier a
 ``DeviceCompressedView`` (same ``n_pad``, same draws, same labels), whose
 rounds rate off the compressed stream.
+
+With ``overlay_levels`` > 1, that many independent clusterings are
+intersected (overlay clustering): two nodes share a cluster only if every
+clustering puts them together.  Intersection only splits clusters, so the
+weight cap holds.
 """
 
 from __future__ import annotations
@@ -16,18 +21,43 @@ import torch
 from ..context import LabelPropagationContext
 from ..graph.device_compressed import DeviceCompressedView
 from ..ops import lp
+from ..ops.segment import run_ids, run_starts2, segment_min
 from ..utils import RandomState
 
 
+def _intersect_clusterings(la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """u and v share a cluster iff they share one in both ``la`` and
+    ``lb``; each (la, lb) run is relabelled to its smallest member, so
+    labels stay node ids.  One stable sort of the key la << 32 | lb, the
+    order of the lexsort of (lb, la)."""
+    n = int(la.shape[0])
+    order = torch.sort((la.long() << 32) | lb.long(), stable=True).indices
+    rid = run_ids(run_starts2(la[order], lb[order]))
+    rep = segment_min(order.to(la.dtype), rid, n)
+    out = torch.zeros_like(la)
+    out[order] = rep[rid.long()]
+    return out
+
+
 class LPClustering:
-    def __init__(self, ctx: LabelPropagationContext, *, weighted_graph: bool = False):
+    def __init__(self, ctx: LabelPropagationContext, overlay_levels: int = 1, *,
+                 weighted_graph: bool = False):
         self.ctx = ctx
+        self.overlay_levels = max(int(overlay_levels), 1)
         # Decided once from the coarsener's input graph, so the mode cannot
         # flip as contraction accumulates edge weights.
         self.weighted_graph = weighted_graph
 
     def compute_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
-        """Padded (n_pad,) cluster labels; pad nodes carry the anchor label."""
+        """Padded (n_pad,) cluster labels; pad nodes carry the anchor label
+        (after an overlay, the pads' smallest member's)."""
+        labels = self._one_clustering(graph, max_cluster_weight)
+        for _ in range(self.overlay_levels - 1):
+            labels = _intersect_clusterings(
+                labels, self._one_clustering(graph, max_cluster_weight))
+        return labels
+
+    def _one_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
         if isinstance(graph, DeviceCompressedView):
             layout, node_w, row_ptr = graph, graph.node_w_pad, graph.row_ptr_like()
             n, n_pad, anchor = graph.n, graph.n_pad, graph.anchor

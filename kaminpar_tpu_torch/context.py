@@ -18,7 +18,22 @@ import numpy as np
 
 
 class PartitioningMode(enum.Enum):
+    """Orchestration scheme: deep multilevel, recursive bisection, single-
+    shot k-way, or deep v-cycles over increasing k."""
+
     DEEP = "deep"
+    RB = "rb"
+    KWAY = "kway"
+    VCYCLE = "vcycle"
+
+
+class ClusteringAlgorithm(enum.Enum):
+    """Coarsening clusterer: none, label propagation or heavy-edge
+    matching."""
+
+    NOOP = "noop"
+    LP = "lp"
+    HEM = "hem"
 
 
 class RefinementAlgorithm(enum.Enum):
@@ -70,7 +85,22 @@ class LabelPropagationContext:
 
 
 @dataclass
+class SparsificationContext:
+    """Threshold edge sparsification after contraction (the linear-time
+    tier): keep about target_m of the heaviest coarse edges, where
+    target_m = min(edge_target_factor x m, density_target_factor x m/n x
+    n_c), and only when the coarse graph has more than laziness_factor x
+    target_m edges."""
+
+    enabled: bool = False
+    density_target_factor: float = 0.5
+    edge_target_factor: float = 0.5
+    laziness_factor: float = 4.0
+
+
+@dataclass
 class CoarseningContext:
+    algorithm: ClusteringAlgorithm = ClusteringAlgorithm.LP
     lp: LabelPropagationContext = field(
         default_factory=lambda: LabelPropagationContext(active_prob=0.5)
     )
@@ -83,6 +113,10 @@ class CoarseningContext:
     convergence_threshold: float = 0.05
     cluster_weight_limit: ClusterWeightLimit = ClusterWeightLimit.EPSILON_BLOCK_WEIGHT
     cluster_weight_multiplier: float = 1.0
+    # Intersect this many independent LP clusterings (overlay clustering);
+    # <= 1 disables.
+    overlay_levels: int = 1
+    sparsification: SparsificationContext = field(default_factory=SparsificationContext)
 
 
 @dataclass
@@ -241,12 +275,18 @@ class Context:
     refinement: RefinementContext = field(default_factory=RefinementContext)
     compression: GraphCompressionContext = field(default_factory=GraphCompressionContext)
     seed: int = 0
+    # v-cycle mode: the intermediate k values partitioned before the final k.
+    vcycles: tuple = ()
+    # v-cycle mode: revert refinement moves across the previous cycle's
+    # blocks.
+    restrict_vcycle_refinement: bool = False
 
 
 __all__ = [
-    "BalancerContext", "ClusterWeightLimit",
+    "BalancerContext", "ClusterWeightLimit", "ClusteringAlgorithm",
     "CoarseningContext", "ColoredLPContext", "Context", "FMContext",
     "GraphCompressionContext", "InitialPartitioningContext", "JetContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
-    "RefinementAlgorithm", "RefinementContext", "TieBreakingStrategy",
+    "RefinementAlgorithm", "RefinementContext", "SparsificationContext",
+    "TieBreakingStrategy",
 ]

@@ -46,9 +46,21 @@ def create_refiner(ctx: Context, *, coarse_level: bool = False) -> Refiner:
 
 def create_partitioner(ctx: Context, graph: Optional[CSRGraph], *,
                        compressed: Optional[CompressedGraph] = None, device=None):
-    """The partitioner of ``graph``, or of ``compressed`` on ``device``."""
+    """The partitioner of ``ctx.mode`` for ``graph``, or for ``compressed``
+    on ``device``: the deep scheme partitions it from its compressed form,
+    the other schemes decompress it onto ``device`` first."""
     from .partitioning.deep import DeepMultilevelPartitioner
+    from .partitioning.kway import KWayMultilevelPartitioner
+    from .partitioning.rb import RBMultilevelPartitioner
+    from .partitioning.vcycle import VcycleDeepMultilevelPartitioner
 
     if ctx.mode == PartitioningMode.DEEP:
         return DeepMultilevelPartitioner(ctx, graph, compressed=compressed, device=device)
-    raise ValueError(f"unhandled partitioning mode {ctx.mode}")
+    if graph is None:
+        graph = compressed.decompress(device)
+    schemes = {PartitioningMode.KWAY: KWayMultilevelPartitioner,
+               PartitioningMode.RB: RBMultilevelPartitioner,
+               PartitioningMode.VCYCLE: VcycleDeepMultilevelPartitioner}
+    if ctx.mode not in schemes:
+        raise ValueError(f"unhandled partitioning mode {ctx.mode}")
+    return schemes[ctx.mode](ctx, graph)

@@ -2,8 +2,8 @@
 ``kaminpar_tpu/kaminpar.py``).
 
 It owns a graph and a :class:`Context`, sets up the block-weight limits,
-strips isolated nodes, runs the deep multilevel partitioner on its device
-and re-inserts the isolated nodes into the lightest blocks; where that
+strips isolated nodes, runs the partitioner of ``ctx.mode`` (deep, k-way,
+recursive bisection or v-cycle) on its device and re-inserts the isolated nodes into the lightest blocks; where that
 leaves a block below its minimum weight, the underload balancer repairs
 it on the whole graph.  A compressed
 graph (``set_graph(CompressedGraph)``, or any graph under a context with
@@ -62,7 +62,8 @@ class KaMinPar:
         self.graph: Optional[CSRGraph] = None
         self.compressed_graph: Optional[CompressedGraph] = None
         self._last: Optional[PartitionedGraph] = None
-        # The partitioner of the last run (its phase times and level count).
+        # The partitioner of the last run (its scheme's stats: phase times,
+        # levels, coarsest graph, and the scheme's own counts).
         self.last_partitioner = None
 
     def set_graph(self, graph: Union[CSRGraph, CompressedGraph]) -> None:

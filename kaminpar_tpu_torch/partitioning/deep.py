@@ -19,6 +19,12 @@ Under ``device_decode`` "finest"/"auto" a ``DeviceCompressedView`` stands
 in for the finest CSR during coarsening; under "off" the finest CSR is
 decompressed on the host.  Either way it is released while the coarse
 levels are worked on and decoded again at level 0.
+
+In a v-cycle (``partitioning/vcycle.py``) the pipeline takes the previous
+cycle's partition as ``communities``: coarsening never merges across
+them, the coarsest partition is the coarsest level's communities, and
+under ``restrict_vcycle_refinement`` every refinement's moves across the
+previous cycle's blocks are reverted (:meth:`DeepMultilevelPartitioner._restrict`).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from ..coarsening.cluster_coarsener import ClusterCoarsener
-from ..context import Context
+from ..context import ClusteringAlgorithm, Context
 from ..factories import create_refiner
 from ..graph import metrics
 from ..graph.compressed import CompressedGraph
@@ -41,6 +47,7 @@ from ..graph.csr import CSRGraph, from_numpy_csr
 from ..graph.device_compressed import build_device_view
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import HostCSR, extract_all_subgraphs, recursive_bipartition
+from ..refinement.balancer import _balance_round, draw_balance_round
 from ..utils import RandomState, platform
 from ..utils.logger import Logger, OutputLevel
 from .extension import extend_partition_device
@@ -176,12 +183,16 @@ def _nested_partition(sub: HostCSR, sub_k: int, budgets: np.ndarray, ctx: Contex
 
 class DeepMultilevelPartitioner:
     def __init__(self, ctx: Context, graph: Optional[CSRGraph], *,
-                 compressed: Optional[CompressedGraph] = None, device=None):
+                 compressed: Optional[CompressedGraph] = None, device=None,
+                 communities: Optional[torch.Tensor] = None, communities_k: int = 0):
         """``graph``, or ``compressed`` (with ``graph`` None) and the
-        ``device`` to partition it on."""
+        ``device`` to partition it on; in a v-cycle, ``communities``, the
+        previous cycle's ``communities_k``-way partition of ``graph``."""
         self.ctx = ctx
         self.graph = graph
         self.compressed = compressed
+        self.communities = communities
+        self.communities_k = communities_k
         self.device = graph.device if graph is not None else torch.device(device)
         # Host seconds of the three phases of the last partition() call
         # (and of the extension steps inside uncoarsening: the summed
@@ -189,11 +200,13 @@ class DeepMultilevelPartitioner:
         # which overlap in the thread pool, the wall of the pooled
         # sections and of device extension; see new_job_stats), the number
         # of extension steps of each kind, the coarsest graph's n, m and
-        # block count k0, and the number of coarsening levels it built.
+        # block count k0, the number of coarsening levels it built and the
+        # node count of every level, the input's first.
         self.phase_seconds = {}
         self.extension_jobs = {}
         self.coarsest = {}
         self.num_levels = 0
+        self.level_n = []
         # The DeviceCompressedView the finest level ran off, if any.
         self.compressed_view = None
 
@@ -217,6 +230,56 @@ class DeepMultilevelPartitioner:
         p_graph = PartitionedGraph.create(graph, cur_k, part, max_bw, min_bw)
         return create_refiner(self.ctx, coarse_level=coarse).refine(p_graph)
 
+    def _restrict(self, p_graph: PartitionedGraph, pre_part, cur_k: int,
+                  communities: Optional[torch.Tensor], draw=None) -> PartitionedGraph:
+        """Restricted v-cycle refinement: revert the moves of the last
+        refinement that crossed the previous cycle's blocks (``pre_part``:
+        the partition before it), then, if that broke a budget, rebalance
+        inside the previous cycle's blocks (``draw`` as there)."""
+        if (not self.ctx.restrict_vcycle_refinement or communities is None
+                or self.communities_k <= 0):
+            return p_graph
+        k = self.ctx.partition.k
+        off_cur = split_offsets(k, cur_k)
+        off_prev = split_offsets(k, self.communities_k)
+        # the previous cycle's block that holds each current block
+        blk_comm = np.searchsorted(off_prev, off_cur[:cur_k], side="right") - 1
+        dev = p_graph.graph.device
+        part = p_graph.partition
+        bad = torch.as_tensor(blk_comm, dtype=torch.int32, device=dev)[part.long()] != communities
+        if bool(bad.any()):
+            pre = torch.as_tensor(pre_part, device=dev).to(torch.int32)
+            p_graph = p_graph.with_partition(torch.where(bad, pre, part))
+            if not p_graph.is_feasible():
+                # Reverted moves can overload a block again, and the
+                # refiners cannot repair that across the communities.
+                p_graph = self._rebalance_restricted(p_graph, communities, blk_comm, draw)
+        return p_graph
+
+    def _rebalance_restricted(self, p_graph: PartitionedGraph, communities: torch.Tensor,
+                              blk_comm: np.ndarray, draw=None) -> PartitionedGraph:
+        """Group-restricted overload rounds (the group of a block: the
+        previous cycle's block holding it) on the community-masked graph.
+        ``draw(round)`` gives a round's ``BalanceDraws``; by default they
+        are drawn from the run's generator."""
+        graph = p_graph.graph
+        mg = graph.community_masked(communities)
+        pv, bv = mg.padded(), mg.bucketed()
+        max_bw = torch.as_tensor(p_graph.max_block_weights, dtype=torch.int32,
+                                 device=graph.device)
+        group_of = torch.as_tensor(blk_comm, dtype=torch.int32, device=graph.device)
+        if draw is None:
+            gen = RandomState.generator(graph.device)
+            draw = lambda _: draw_balance_round(gen, bv, pv.n_pad)  # noqa: E731
+        labels = pv.pad_node_array(p_graph.partition, 0)
+        for r in range(self.ctx.refinement.balancer.max_num_rounds):
+            labels, flags = _balance_round(labels, draw(r), bv, pv.node_w, max_bw,
+                                           k=p_graph.k, group_of=group_of)
+            num_moved, still = flags.tolist()
+            if not still or num_moved == 0:
+                break
+        return p_graph.with_partition(labels[: pv.n])
+
     def partition(self) -> PartitionedGraph:
         ctx = self.ctx
         k = ctx.partition.k
@@ -225,11 +288,19 @@ class DeepMultilevelPartitioner:
         cview = None
         if self.graph is None:
             cview = build_device_view(ctx.compression, self.compressed, self.device)
+            if cview is not None and ctx.coarsening.algorithm != ClusteringAlgorithm.LP:
+                raise ValueError("the compressed view is clustered by LP only; set "
+                                 "compression.device_decode to 'off' for "
+                                 f"{ctx.coarsening.algorithm.value}")
             self.compressed_view = cview
             if cview is None:
                 self.graph = self.compressed.decompress(self.device)
         coarsener = ClusterCoarsener(ctx, self.graph, compressed_view=cview)
+        if self.communities is not None:
+            coarsener.set_communities(self.communities)
+        n0 = coarsener.current_n
         coarsest = coarsener.coarsen(k, ctx.partition.epsilon, 2 * C)
+        self.level_n = [n0] + [level.graph.n for level in coarsener.hierarchy]
         if self.compressed is not None and coarsener.num_levels > 0:
             # Only the compressed form and the coarse graphs stay resident
             # until uncoarsening is back at level 0.
@@ -238,23 +309,30 @@ class DeepMultilevelPartitioner:
         self.num_levels = coarsener.num_levels
         t1 = time.perf_counter()
 
-        cur_k = min(k, compute_k_for_n(coarsest.n, C, k))
+        rng = RandomState.numpy_rng()
+        if self.communities is not None:
+            # v-cycle: the coarsest partition is the previous cycle's,
+            # projected to the coarsest level
+            cur_k = self.communities_k
+            part = coarsener.current_communities.cpu().numpy().astype(np.int32)
+        else:
+            cur_k = min(k, compute_k_for_n(coarsest.n, C, k))
+            budgets = intermediate_block_weights(
+                np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
+            )
+            part = recursive_bipartition(
+                graph_to_host(coarsest), cur_k, budgets, rng, ctx.initial_partitioning,
+                device=coarsest.device,
+            )
         self.coarsest = dict(n=coarsest.n, m=coarsest.m, k0=cur_k)
         Logger.log(
             f"  deep: coarsest n={coarsest.n} m={coarsest.m} "
             f"levels={coarsener.num_levels} k0={cur_k}",
             OutputLevel.DEBUG,
         )
-        rng = RandomState.numpy_rng()
-        budgets = intermediate_block_weights(
-            np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
-        )
-        part = recursive_bipartition(
-            graph_to_host(coarsest), cur_k, budgets, rng, ctx.initial_partitioning,
-            device=coarsest.device,
-        )
         t2 = time.perf_counter()
         p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
+        p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
 
         extension_s = 0.0
         jobs = new_job_stats()
@@ -269,12 +347,14 @@ class DeepMultilevelPartitioner:
                 extension_s += time.perf_counter() - te
                 cur_k = target_k
                 p_graph = self._refine(graph, part, cur_k, coarsener.num_levels > 0)
+                p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
             if coarsener.num_levels == 0:
                 break
             fine_part = coarsener.uncoarsen(p_graph.partition)
             p_graph = self._refine(
                 coarsener.current_graph, fine_part, cur_k, coarsener.num_levels > 0
             )
+            p_graph = self._restrict(p_graph, fine_part, cur_k, coarsener.current_communities)
         self.phase_seconds = {
             "coarsening": t1 - t0,
             "initial_partitioning": t2 - t1,

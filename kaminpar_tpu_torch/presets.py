@@ -1,7 +1,9 @@
-"""Named presets of the deep scheme (as in ``kaminpar_tpu/presets.py``):
+"""Named presets (as in ``kaminpar_tpu/presets.py``): of the deep scheme
 ``default``, ``fast``, ``eco``, ``eco-devext``, ``strong``, ``jet``,
-``4xjet``, ``noref``, the largek and terapart variants, and the rename
-aliases ``fm``, ``flow`` and ``esa21-*``."""
+``4xjet``, ``noref``, the largek and terapart variants and the rename
+aliases ``fm``, ``flow`` and ``esa21-*``; of the other schemes ``kway``
+(alias ``mtkahypar-kway``), ``linear-time-kway``, ``vcycle`` and
+``restricted-vcycle``."""
 
 from __future__ import annotations
 
@@ -167,6 +169,40 @@ def create_terapart_largek_context() -> Context:
     return ctx
 
 
+def create_kway_context() -> Context:
+    """Single-shot k-way multilevel: coarsen to contraction_limit x k nodes,
+    partition into k blocks at once, refine at k on every level."""
+    ctx = create_default_context()
+    ctx.preset_name = "kway"
+    ctx.mode = PartitioningMode.KWAY
+    return ctx
+
+
+def create_linear_time_kway_context() -> Context:
+    """k-way with 2 LP sweeps a level and threshold sparsification of the
+    coarse graphs, for worst-case linear total work."""
+    ctx = create_kway_context()
+    ctx.preset_name = "linear-time-kway"
+    ctx.coarsening.lp.num_iterations = 2
+    ctx.coarsening.sparsification.enabled = True
+    ctx.refinement.algorithms = (
+        RefinementAlgorithm.OVERLOAD_BALANCER,
+        RefinementAlgorithm.LP,
+    )
+    return ctx
+
+
+def create_vcycle_context(restricted: bool = False) -> Context:
+    """Deep multilevel through the intermediate k of ``ctx.vcycles``: each
+    cycle's partition constrains the next one's coarsening (and, when
+    restricted, its refinement)."""
+    ctx = create_default_context()
+    ctx.preset_name = "restricted-vcycle" if restricted else "vcycle"
+    ctx.mode = PartitioningMode.VCYCLE
+    ctx.restrict_vcycle_refinement = restricted
+    return ctx
+
+
 _PRESETS = {
     "default": create_default_context,
     "fast": create_fast_context,
@@ -190,6 +226,11 @@ _PRESETS = {
     "esa21-largek": create_largek_context,
     "esa21-largek-fast": create_largek_fast_context,
     "esa21-strong": create_strong_context,
+    "kway": create_kway_context,
+    "mtkahypar-kway": create_kway_context,  # rename alias
+    "linear-time-kway": create_linear_time_kway_context,
+    "vcycle": create_vcycle_context,
+    "restricted-vcycle": lambda: create_vcycle_context(True),
 }
 
 

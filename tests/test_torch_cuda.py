@@ -901,3 +901,70 @@ def test_quality_presets_on_card(cuda, preset):
     assert lp_kernels.RATE_MODES["lp_rate:" + lp_kernels.rate_mode(True, False)] > 0
     if preset == "strong":
         assert fm_refiner.fm_stats_snapshot()["passes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat", "grid"])
+def test_hem_round_on_card_matches_cpu(cuda, name):
+    """One HEM round (and a whole HEM clustering) on the card, given the
+    same jitter, equals the CPU's."""
+    from kaminpar_tpu_torch.coarsening import hem_clusterer as hem
+    from kaminpar_tpu_torch.context import LabelPropagationContext
+
+    g = make_graph(name)
+    dg = g.to(cuda)
+    pv, dpv = g.padded(), dg.padded()
+    gen = torch.Generator().manual_seed(8)
+    jitters = [hem.draw_hem_jitter(gen, pv) for _ in range(5)]
+    match = torch.arange(pv.n_pad, dtype=torch.int32)
+    cap = torch.tensor(4, dtype=torch.int32)
+    ref = hem._hem_round(match, jitters[0], pv, cap)
+    out = hem._hem_round(match.to(cuda), jitters[0].to(cuda), dpv, cap.to(cuda))
+    assert torch.equal(ref, out.cpu()) and bool((ref != match).any())
+    clusterer = hem.HEMClustering(LabelPropagationContext())
+    ref = clusterer.compute_clustering(g, 4, draw=lambda r: jitters[r])
+    out = clusterer.compute_clustering(dg, 4, draw=lambda r: jitters[r].to(cuda))
+    assert torch.equal(ref, out.cpu())
+
+
+@pytest.mark.cuda
+def test_kway_on_card_bisects_on_the_device_pool(cuda):
+    """KaMinPar("kway") on the card: feasible, every block used, both
+    kernels launched and every bisection of the initial partition on the
+    device pool."""
+    from kaminpar_tpu_torch.ops import bipartition
+
+    g = generators.rmat_graph(12, 8, seed=1)
+    solver = kp.KaMinPar("kway")
+    solver.ctx.coarsening.contraction_limit = 64
+    solver.set_graph(g)
+    lp_kernels.reset_launches()
+    bipartition.reset_pool_stats()
+    part = solver.compute_partition(8)
+    pool = bipartition.pool_stats_snapshot()
+    assert solver.last_partition.is_feasible() and len(np.unique(part)) == 8
+    assert solver.last_partitioner.num_levels >= 1
+    assert pool["calls"] == 7 and pool["host_bisections"] == 0
+    assert lp_kernels.LAUNCHES["lp_rate"] > 0 and lp_kernels.LAUNCHES["lp_commit"] > 0
+
+
+@pytest.mark.cuda
+def test_rb_subgraphs_are_cuda_graphs(cuda):
+    """Recursive bisection on the card builds every subgraph on the card,
+    and each of its k = 2 pipelines bisects on the device pool."""
+    from kaminpar_tpu_torch.context import PartitioningMode
+    from kaminpar_tpu_torch.ops import bipartition
+
+    g = generators.rmat_graph(11, 8, seed=1)
+    solver = kp.KaMinPar("default")
+    solver.ctx.mode = PartitioningMode.RB
+    solver.ctx.coarsening.contraction_limit = 64
+    solver.set_graph(g)
+    bipartition.reset_pool_stats()
+    part = solver.compute_partition(8)
+    rb = solver.last_partitioner
+    pool = bipartition.pool_stats_snapshot()
+    assert solver.last_partition.is_feasible() and len(np.unique(part)) == 8
+    assert rb.bisections == 7 and set(rb.subgraph_devices) == {"cuda:0"}
+    assert sum(rb.subgraph_devices.values()) == 6
+    assert pool["calls"] == 7 and pool["host_bisections"] == 0

@@ -545,7 +545,7 @@ def test_largek_presets_and_terapart_largek_on_the_cpu():
         assert tctx.refinement.lp.num_iterations == jctx.refinement.lp.num_iterations
         assert tctx.compression.enabled == jctx.compression.enabled
     with pytest.raises(ValueError, match="largek-fast"):
-        port_preset("kway")
+        port_preset("no-such-preset")
     g = tgen.rmat_graph(10, 8, seed=1)
     solver = kp.KaMinPar("terapart-largek", device="cpu")
     solver.ctx.initial_partitioning.device_extension_n = 256
