@@ -94,6 +94,15 @@ which fails the run when it fails:
    intermediate cycle at k = 4, recursive bisection (every subgraph built
    on the card), ``default`` with HEM coarsening (no level shrinking by
    more than 2x) and ``kway`` with two overlaid clusterings;
+6c'. sync budget: ``KaMinPar("default")`` into k blocks of the scheme
+   checks' graph with the readback budgets armed, the tripwire on, the
+   card's synchronizing calls counted (``sync_stats.count_device_syncs``,
+   sync debug mode "warn"), the heap profiler on and the run traced to a
+   file, and no peak tracker or capture wrapper (their own readbacks would
+   count): the coarsening's pulls equal its contractions, no card sync
+   outside a pull in coarsening, the initial partitioning's pulls at most
+   its k0 (asserted in ``partitioning/deep.py``), a valid trace and device
+   bytes in the heap report;
 6d. round reference, on a small graph: one whole LP round, one balancer
    round, one underload round, one group-restricted balancer round, one
    JET move round, one colouring and one colored LP iteration on the card
@@ -113,6 +122,9 @@ which fails the run when it fails:
    ``extension_jobs``: their counts) and the bipartition pool's stats
    (its ``wall_s`` is summed over calls, which overlap too); every
    bisection of every path must have run on the device pool;
+   Every path's line also carries the run's timer tree, three scopes deep
+   (``timer``: seconds and starts per path), and its readback census
+   (``sync``: explicit and implicit pulls and their bytes per phase);
 7a. vcycle path: ``KaMinPar("vcycle")`` with one intermediate cycle at
    k = 4 into k blocks of the default path's graph, as 7: both cycles ran,
    and the cut at most 1.25x the default path's;
@@ -124,7 +136,10 @@ which fails the run when it fails:
 9. largek path: ``KaMinPar("largek").compute_partition(LARGE_K)`` on its
    graph, counters and peaks as in 4; feasible, all blocks filled, the cut
    below ``LARGE_K_CUT_BOUND`` x a random partition's, device extension fired, both
-   dense-path kernels run; its phase split printed; then the rating and
+   dense-path kernels run; its phase split printed; the run is traced
+   (``telemetry.run``) and its line gives each top-level coarsening
+   level's span seconds (``coarsening_levels_s``) and the summed seconds
+   of device extension's nested coarsening levels; then the rating and
    commit kernels at ``L = LARGE_K`` on the path's own final partition,
    compared with their plain versions and timed;
 10. minimum weights: ``KaMinPar("default")`` into k blocks of
@@ -194,8 +209,10 @@ OFF_FINEST_K = 4
 # packages' ratios; PERF.md §6 has the table.
 LARGE_K = 1024
 LARGE_K_CUT_BOUND = 0.97
-# The pooled = serial check: largek into 64 blocks of rmat_graph(13).
-POOLED_SERIAL_SCALE, POOLED_SERIAL_K = 13, 64
+# The pooled = serial check: largek into 64 blocks of rmat_graph(12) (its
+# level 0, 3,352 nodes, extends on the device; at scale 13 the check took
+# 89 s of the script's time limit on a card whose host paced it slowly).
+POOLED_SERIAL_SCALE, POOLED_SERIAL_K = 12, 64
 # CLP's colouring on the jet path's finest graph: the reference's 62
 # colours and 64 rounds leave RMAT's dense core uncoloured, at colour 0
 # (3,448 stragglers, 0.53% of the nodes, and 13.1% of the edges
@@ -220,10 +237,20 @@ VCYCLE_CUT_BOUND = 1.25
 # convergence threshold (hubs match at most one neighbour); the HEM check
 # lowers it to 1%, as the CPU parity cell does, so that HEM builds levels.
 HEM_CONVERGENCE = 0.01
+# The timer tree in every path's line: three scopes deep.
+TIMER_DEPTH = 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def run_accounting() -> dict:
+    """The last run's timer tree (``TIMER_DEPTH`` + 1 scopes deep) and the
+    readback census since the last ``sync_stats.reset()``."""
+    from kaminpar_tpu_torch.utils import Timer, sync_stats
+
+    return dict(timer=Timer.global_().paths(TIMER_DEPTH), sync=sync_stats.snapshot())
 
 
 # Cycles the card sleeps before a timed run, so that the host has queued
@@ -995,6 +1022,7 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
 
     from kaminpar_tpu_torch.graph.compressed import CompressedGraph
     from kaminpar_tpu_torch.ops import bipartition, lp_kernels
+    from kaminpar_tpu_torch.utils import sync_stats
 
     def refuse(self, device="cpu"):
         raise AssertionError("the terapart path decompressed on the host")
@@ -1005,6 +1033,7 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
         with PeakTracker() as mem:
             lp_kernels.reset_launches()
             bipartition.reset_pool_stats()
+            sync_stats.reset()
             t0 = time.perf_counter()
             part = solver.compute_partition(k, epsilon=eps)
             torch.cuda.synchronize()
@@ -1031,7 +1060,8 @@ def phase_terapart_path(solver, graph, k: int, eps: float, compress_s: float):
                 coarsest=solver.last_partitioner.coarsest,
                 phase_s=solver.last_partitioner.phase_seconds,
                 extension_jobs=solver.last_partitioner.extension_jobs, pool=pool,
-                launches=launches, commit_calls=mem.commit_log("terapart"))
+                launches=launches, commit_calls=mem.commit_log("terapart"),
+                **run_accounting())
     log(json.dumps(info))
     check_pool_served(pool, "terapart")
     if not feasible:
@@ -1403,32 +1433,39 @@ SCHEME_STATS = ("level_n", "converged", "sparsification", "cycles", "bisections"
 
 
 def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bound: float,
-                     capture=None, configure=None):
+                     capture=None, configure=None, trace=False):
     """``KaMinPar(preset).compute_partition(k)`` on the card (its context
     changed by ``configure``, if given), with the launch counters and pool
     stats set to 0 just before and read just after and the peaks tracked
     (and ``capture`` entered, if given); logs the path's line, with the
     scheme's own stats (``SCHEME_STATS``), and checks it: feasible, all k
     blocks used, the cut below ``cut_bound`` x a random partition's, both
-    dense-path kernels run and every bisection on the device pool.
-    Returns (line, solver, partition)."""
+    dense-path kernels run and every bisection on the device pool.  With
+    ``trace`` the run is recorded (``telemetry.run``) and the line gives
+    the span seconds of every top-level coarsening level and the summed
+    ones of device extension's nested levels.  Returns (line, solver,
+    partition)."""
     import contextlib
 
     import torch
 
     import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch import telemetry
     from kaminpar_tpu_torch.ops import bipartition, lp_kernels
     from kaminpar_tpu_torch.refinement import fm_refiner, jet
+    from kaminpar_tpu_torch.utils import sync_stats
 
     solver = kp.KaMinPar(preset)  # no device: cuda:0
     if configure is not None:
         configure(solver.ctx)
     solver.set_graph(graph)
-    with PeakTracker() as mem, capture or contextlib.nullcontext():
+    recording = telemetry.run() if trace else contextlib.nullcontext()
+    with PeakTracker() as mem, capture or contextlib.nullcontext(), recording as rec:
         lp_kernels.reset_launches()
         bipartition.reset_pool_stats()
         jet.reset_jet_stats()
         fm_refiner.reset_fm_stats()
+        sync_stats.reset()
         t0 = time.perf_counter()
         part = solver.compute_partition(k, epsilon=eps)
         torch.cuda.synchronize()
@@ -1454,7 +1491,12 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
                 phase_s=part_info.phase_seconds,
                 extension_jobs=getattr(part_info, "extension_jobs", {}), pool=pool,
                 launches=launches, rate_modes=rate_modes, jet=jet_stats, fm=fm_stats,
-                commit_calls=mem.commit_log(preset))
+                commit_calls=mem.commit_log(preset), **run_accounting())
+    if trace:
+        info["coarsening_levels_s"] = rec.span_seconds("partitioning", "coarsening")
+        nested = rec.span_seconds("partitioning", "extend_partition", "coarsening")
+        info["extension_coarsening"] = dict(levels=len(nested), s=sum(nested))
+        info["trace"] = rec.summary()
     info.update({key: dict(getattr(part_info, key)) if key == "subgraph_devices"
                  else getattr(part_info, key)
                  for key in SCHEME_STATS if hasattr(part_info, key)})
@@ -1493,9 +1535,11 @@ def phase_largek_path(graph, k: int, eps: float):
     device extension must have fired.  Logs the phase split; returns the
     path's line, its partition and block caps."""
     info, solver, part = drive_dense_path("largek", "largek_path", graph, k, eps,
-                                          LARGE_K_CUT_BOUND)
+                                          LARGE_K_CUT_BOUND, trace=True)
     log("largek split (s): " + ", ".join(
-        f"{key} {val:.3f}" for key, val in info["phase_s"].items()))
+        f"{key} {val:.3f}" for key, val in info["phase_s"].items())
+        + "; coarsening levels (s): " + ", ".join(
+            f"{val:.3f}" for val in info["coarsening_levels_s"]))
     if info["extension_jobs"]["device"] <= 0:
         raise AssertionError("device extension did not fire on the largek path")
     return info, part, solver.last_partition.max_block_weights
@@ -1888,6 +1932,79 @@ def phase_scheme_checks(graph, scale: int, k: int, eps: float) -> dict:
     return out
 
 
+def phase_sync_budget(graph, scale: int, k: int, eps: float) -> dict:
+    """``KaMinPar("default").compute_partition(k)`` on ``graph`` with the
+    readback budgets armed (``partitioning/deep.py`` asserts the
+    coarsening's, the initial partitioning's and the compressed tier's),
+    the tripwire on, the card's synchronizing calls counted per phase
+    (``sync_stats.count_device_syncs``), the heap profiler on and the run
+    traced to a file; no peak tracker or capture wrapper, whose own
+    readbacks would count.  Holds: coarsening's pulls equal its
+    contractions, no card sync outside a pull in coarsening, at most k0
+    initial-partitioning pulls, a valid trace, device bytes in the heap
+    report.  Returns its line."""
+    import tempfile
+
+    import torch
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch import telemetry
+    from kaminpar_tpu_torch.utils import heap_profiler, sync_stats
+
+    solver = kp.KaMinPar("default")  # no device: cuda:0
+    solver.set_graph(graph)
+    heap_profiler.HeapProfiler.reset(enabled=True)
+    sync_stats.reset()
+    sync_stats.enable_budget_checks(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        try:
+            with telemetry.run(trace_out=trace_path), sync_stats.tripwire(), \
+                    sync_stats.count_device_syncs() as other_warnings:
+                t0 = time.perf_counter()
+                solver.compute_partition(k, epsilon=eps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            sync_stats.enable_budget_checks(False)
+        with open(trace_path) as fh:
+            trace = telemetry.validate_chrome_trace(json.load(fh))
+    acc = run_accounting()
+    report = heap_profiler.HeapProfiler.report()
+    heap_profiler.HeapProfiler.reset(enabled=False)
+    memory = heap_profiler.memory_summary()
+    scheme = solver.last_partitioner
+    phases = acc["sync"]["phases"]
+    syncs = acc["sync"]["device_syncs"]
+    p = solver.last_partition
+    info = dict(phase="sync_budget", graph=f"rmat_graph({scale}, 16, seed=1)", k=k,
+                epsilon=eps, wall_s=wall, cut=int(p.edge_cut()),
+                feasible=bool(p.is_feasible()), levels=scheme.num_levels,
+                coarsest=scheme.coarsest, contractions=scheme.contractions,
+                coarsening_pulls=scheme.coarsening_pulls, ip_pulls=scheme.ip_pulls,
+                pulls={ph: row["count"] for ph, row in phases.items()},
+                implicit={ph: row["implicit"] for ph, row in phases.items()
+                          if row["implicit"]},
+                device_syncs=syncs, other_warnings=len(other_warnings),
+                trace={key: trace[key] for key in ("events", "spans", "counters")},
+                heap=memory, heap_report_lines=len(report.splitlines()), **acc)
+    log(json.dumps(info))
+    if not info["feasible"]:
+        raise AssertionError("the sync budget run's partition is infeasible")
+    if scheme.contractions < 1 or scheme.coarsening_pulls != scheme.contractions:
+        raise AssertionError(f"coarsening pulled {scheme.coarsening_pulls} times for "
+                             f"{scheme.contractions} contractions")
+    if syncs.get("coarsening", 0):
+        raise AssertionError(f"{syncs['coarsening']} card syncs outside pull in coarsening")
+    if scheme.ip_pulls > max(scheme.coarsest["k0"], 1):
+        raise AssertionError(f"initial partitioning pulled {scheme.ip_pulls} times "
+                             f"for k0 = {scheme.coarsest['k0']}")
+    if not trace["spans"] or memory.get("peak_bytes_in_use", 0) <= 0 \
+            or "entry=0 exit=0" in report.splitlines()[1]:
+        raise AssertionError("no spans in the trace or no device bytes in the heap report")
+    return info
+
+
 def phase_scheme_round_reference(device):
     """The new schemes' rounds through their entry points, on the card and
     on the CPU with the same draws: one HEM round (and a whole HEM
@@ -1973,10 +2090,12 @@ def phase_min_weights(g, scale: int, k: int, eps: float):
 
     import kaminpar_tpu_torch as kp
     from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.utils import sync_stats
 
     solver = kp.KaMinPar("default")
     solver.set_graph(g)
     lp_kernels.reset_launches()
+    sync_stats.reset()
     t0 = time.perf_counter()
     solver.compute_partition(k, epsilon=eps, min_epsilon=eps)
     torch.cuda.synchronize()
@@ -1989,7 +2108,8 @@ def phase_min_weights(g, scale: int, k: int, eps: float):
                 feasible=bool(p.is_feasible()), min_feasible=bool(p.is_min_feasible()),
                 max_block_weight=int(bw.max()), min_block_weight=int(bw.min()),
                 required_min=int(p.min_block_weights.min()),
-                allowed_max=int(p.max_block_weights.max()), launches=launches)
+                allowed_max=int(p.max_block_weights.max()), launches=launches,
+                **run_accounting())
     log(json.dumps(info))
     if not (info["feasible"] and info["min_feasible"]):
         raise AssertionError("the minimum-weight partition is not feasible and min-feasible")
@@ -2220,6 +2340,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sg = rmat(SCHEME_SCALE)
     scheme_infos = phase_scheme_checks(sg, SCHEME_SCALE, K, EPSILON)
+    phase_sync_budget(sg, SCHEME_SCALE, K, EPSILON)
     del sg
     torch.cuda.empty_cache()
 

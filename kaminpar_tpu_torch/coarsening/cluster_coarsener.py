@@ -33,6 +33,7 @@ from ..graph.device_compressed import DeviceCompressedView
 from ..ops.contraction import contract_clustering, contract_compressed, project_partition
 from ..ops.segment import segment_max
 from ..utils.logger import Logger, OutputLevel
+from ..utils.timer import scoped_timer
 from .hem_clusterer import HEMClustering
 from .lp_clusterer import LPClustering
 from .max_cluster_weights import compute_max_cluster_weight
@@ -57,6 +58,10 @@ class ClusterCoarsener:
         self._compressed: Optional[CompressedGraph] = None
         self._device = None
         self.hierarchy: List[CoarseLevel] = []
+        # Contractions made, the last one of a converged run (not pushed)
+        # included: each reads back once (ops/contraction.py), the budget
+        # the deep scheme asserts for the "coarsening" phase.
+        self.contractions = 0
         algorithm = ctx.coarsening.algorithm
         if algorithm == ClusteringAlgorithm.LP:
             pinned = ctx.coarsening.lp.weighted_mode
@@ -120,7 +125,8 @@ class ClusterCoarsener:
             if self.input_cview is not None:
                 Logger.log("  terapart: decoding the finest CSR on the device",
                            OutputLevel.DEBUG)
-                self.input_graph = self.input_cview.materialize_csr()
+                with scoped_timer("compressed_decode"):
+                    self.input_graph = self.input_cview.materialize_csr()
             else:
                 Logger.log("  terapart: decompressing the finest CSR on the host",
                            OutputLevel.DEBUG)
@@ -168,13 +174,18 @@ class ClusterCoarsener:
             avg_w = src.total_node_weight / max(n_cur, 1)
             max_cw = min(max_cw, max(int(sf * avg_w), 1))
         comm = self.current_communities
-        if comm is None:
-            labels = self.clusterer.compute_clustering(src, max_cw)
-        else:
-            labels = self._masked_clusterer.compute_clustering(
-                src.community_masked(comm), max_cw)
-        contract = contract_compressed if off_stream else contract_clustering
-        coarse, coarse_of = contract(src, labels)
+        with scoped_timer("coarsening"):
+            if comm is None:
+                labels = self.clusterer.compute_clustering(src, max_cw)
+            else:
+                labels = self._masked_clusterer.compute_clustering(
+                    src.community_masked(comm), max_cw)
+            contract = contract_compressed if off_stream else contract_clustering
+            self.contractions += 1
+            coarse, coarse_of = contract(src, labels)
+            # Clusters never span communities: any member's community is
+            # the cluster's.
+            coarse_comm = None if comm is None else segment_max(comm, coarse_of, coarse.n)
         coarse_m = coarse.m
         coarse = self._sparsify(coarse, n_cur, m_cur)
         Logger.log(
@@ -189,9 +200,6 @@ class ClusterCoarsener:
             self.sparsification["levels"] += 1
             self.sparsification["edges_before"] += coarse_m
             self.sparsification["edges_after"] += coarse.m
-        # Clusters never span communities: any member's community is the
-        # cluster's.
-        coarse_comm = None if comm is None else segment_max(comm, coarse_of, coarse.n)
         self.hierarchy.append(CoarseLevel(coarse, coarse_of, coarse_comm))
         return True
 
@@ -220,4 +228,7 @@ class ClusterCoarsener:
     def uncoarsen(self, partition: torch.Tensor) -> torch.Tensor:
         """Pop one level and project the partition to the finer graph."""
         level = self.hierarchy.pop()
-        return project_partition(level.coarse_of, partition)
+        with scoped_timer("uncoarsening", sync=True) as ts:
+            out = project_partition(level.coarse_of, partition)
+            ts.note(out)
+        return out

@@ -21,6 +21,7 @@ from ..context import LabelPropagationContext
 from ..graph.csr import PaddedView
 from ..ops.segment import segment_max, segment_min
 from ..utils import RandomState
+from ..utils.timer import scoped_timer
 
 I32MAX = 2**31 - 1
 
@@ -83,9 +84,10 @@ class HEMClustering:
             draw = lambda _: draw_hem_jitter(gen, pv)  # noqa: E731
         node = torch.arange(pv.n_pad, dtype=torch.int32, device=dev)
         match = node
-        max_cw = torch.tensor(int(max_cluster_weight), dtype=torch.int32, device=dev)
-        for r in range(self.num_rounds):
-            match = _hem_round(match, draw(r), pv, max_cw)
+        max_cw = torch.full((), int(max_cluster_weight), dtype=torch.int32, device=dev)
+        with scoped_timer("hem_clustering"):
+            for r in range(self.num_rounds):
+                match = _hem_round(match, draw(r), pv, max_cw)
         # label = min(u, partner); every pad carries the anchor label (the
         # contraction's pad contract)
         labels = torch.minimum(match, node)

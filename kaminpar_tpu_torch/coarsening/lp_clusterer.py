@@ -23,6 +23,7 @@ from ..graph.device_compressed import DeviceCompressedView
 from ..ops import lp
 from ..ops.segment import run_ids, run_starts2, segment_min
 from ..utils import RandomState
+from ..utils.timer import scoped_timer
 
 
 def _intersect_clusterings(la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
@@ -51,10 +52,12 @@ class LPClustering:
     def compute_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
         """Padded (n_pad,) cluster labels; pad nodes carry the anchor label
         (after an overlay, the pads' smallest member's)."""
-        labels = self._one_clustering(graph, max_cluster_weight)
-        for _ in range(self.overlay_levels - 1):
-            labels = _intersect_clusterings(
-                labels, self._one_clustering(graph, max_cluster_weight))
+        with scoped_timer("lp_clustering", sync=True) as ts:
+            labels = self._one_clustering(graph, max_cluster_weight)
+            for _ in range(self.overlay_levels - 1):
+                labels = _intersect_clusterings(
+                    labels, self._one_clustering(graph, max_cluster_weight))
+            ts.note(labels)
         return labels
 
     def _one_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
@@ -72,7 +75,7 @@ class LPClustering:
         ])
         state = lp.init_state(labels, node_w, n_pad)
         # a scalar cap: the clustering weight limit is uniform
-        max_w = torch.tensor(int(max_cluster_weight), dtype=torch.int32, device=dev)
+        max_w = torch.full((), int(max_cluster_weight), dtype=torch.int32, device=dev)
 
         iters = self.ctx.num_iterations
         active_prob = self.ctx.active_prob

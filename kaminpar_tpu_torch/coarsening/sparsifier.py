@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph
-from ..utils import RandomState
+from ..utils import RandomState, sync_stats
 
 
 def _symmetric_hash01(u: np.ndarray, v: np.ndarray, seed: int) -> np.ndarray:
@@ -40,7 +40,7 @@ def sparsify_threshold(graph: CSRGraph, target_m: int) -> CSRGraph:
     m = graph.m
     if target_m >= m or m == 0:
         return graph
-    packed = torch.cat([graph.col_idx, graph.edge_w, graph.edge_u]).cpu().numpy()
+    packed = sync_stats.pull(torch.cat([graph.col_idx, graph.edge_w, graph.edge_u]))
     packed = packed.astype(np.int64)
     col, ew, u = packed[:m], packed[m : 2 * m], packed[2 * m :]
 

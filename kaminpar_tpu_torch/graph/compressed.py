@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils import sync_stats
+
 
 def _zigzag(x: np.ndarray) -> np.ndarray:
     return (x << 1) ^ (x >> 63)
@@ -113,11 +115,11 @@ class CompressedGraph:
 def compress(graph) -> CompressedGraph:
     """Compress a CSRGraph on the host (its arrays are copied to numpy)."""
     row_ptr = graph.host_row_ptr().astype(np.int64)
-    col = graph.col_idx.cpu().numpy().astype(np.int64)
+    col, ew, node_w = sync_stats.pull(graph.col_idx, graph.edge_w, graph.node_w)
+    col = col.astype(np.int64)
     n = graph.n
     deg = np.diff(row_ptr)
     u_arr = np.repeat(np.arange(n), deg)
-    ew = graph.edge_w.cpu().numpy()
 
     # neighbourhoods ascending, stable by (u, v), weights alongside; the
     # sort is skipped when they already are (from_edge_list's output is)
@@ -178,6 +180,6 @@ def compress(graph) -> CompressedGraph:
         word_start=word_start.astype(np.uint32),
         width=width.astype(np.uint8),
         degree=deg.astype(np.int32),
-        node_w=graph.node_w.cpu().numpy().astype(np.int32),
+        node_w=node_w.astype(np.int32),
         edge_w=ew_out,
     )

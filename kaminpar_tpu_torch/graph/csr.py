@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import sync_stats
 from ..utils.intmath import next_shape_bucket
 
 IDX = torch.int32
@@ -135,7 +136,7 @@ class CSRGraph:
 
     def host_row_ptr(self) -> np.ndarray:
         if self._host_row_ptr is None:
-            self._host_row_ptr = self.row_ptr.cpu().numpy().astype(np.int64)
+            self._host_row_ptr = sync_stats.pull(self.row_ptr).astype(np.int64)
         return self._host_row_ptr
 
     def padded(self) -> PaddedView:
@@ -172,23 +173,24 @@ class CSRGraph:
     @property
     def total_node_weight(self) -> int:
         if self._total_node_weight is None:
-            self._total_node_weight = int(self.node_w.sum(dtype=torch.int64))
+            self._total_node_weight = int(sync_stats.pull(self.node_w.sum(dtype=torch.int64)))
         return self._total_node_weight
 
     @property
     def max_node_weight(self) -> int:
         if self._max_node_weight is None:
-            self._max_node_weight = int(self.node_w.max()) if self.n > 0 else 0
+            self._max_node_weight = (int(sync_stats.pull(self.node_w.max()))
+                                     if self.n > 0 else 0)
         return self._max_node_weight
 
     @property
     def total_edge_weight(self) -> int:
-        return int(self.edge_w.sum(dtype=torch.int64))
+        return int(sync_stats.pull(self.edge_w.sum(dtype=torch.int64)))
 
     def has_uniform_edge_weights(self) -> bool:
         if self.m == 0:
             return True
-        return bool(self.edge_w.min() == self.edge_w.max())
+        return bool(sync_stats.pull(self.edge_w.min() == self.edge_w.max()))
 
     def __repr__(self):
         return f"CSRGraph(n={self.n}, m={self.m}, device={self.device})"

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import sync_stats
 from .csr import CSRGraph, from_edge_list, from_numpy_csr
 
 
@@ -92,8 +93,9 @@ def _rmat_graph_on(device: torch.device, scale: int, edge_factor: int, a: float,
     src = key // n
     row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
     torch.cumsum(torch.bincount(src, minlength=n), 0, out=row_ptr[1:])
-    return from_numpy_csr(row_ptr.cpu().numpy(), (key - src * n).to(torch.int32).cpu().numpy(),
-                          None, w.to(torch.int32).cpu().numpy())
+    row_ptr, col, w = sync_stats.pull(row_ptr, (key - src * n).to(torch.int32),
+                                      w.to(torch.int32))
+    return from_numpy_csr(row_ptr, col, None, w)
 
 
 def rgg2d_graph(n: int, radius: float | None = None, seed: int = 0, **kw) -> CSRGraph:

@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import sync_stats
 from .csr import CSRGraph
 
 
@@ -18,7 +19,7 @@ def block_weights(graph: CSRGraph, partition, k: int) -> np.ndarray:
     """(k,) int64 host array of block weights."""
     bw = torch.zeros(k, dtype=torch.int64, device=graph.device)
     bw.index_add_(0, _labels(graph, partition), graph.node_w.to(torch.int64))
-    return bw.cpu().numpy()
+    return sync_stats.pull(bw)
 
 
 def _directed_cut(graph: CSRGraph, lab) -> torch.Tensor:
@@ -31,7 +32,7 @@ def edge_cut(graph: CSRGraph, partition) -> int:
     """Total weight of cut edges, each undirected edge counted once."""
     if graph.m == 0:
         return 0
-    return int(_directed_cut(graph, _labels(graph, partition))) // 2
+    return int(sync_stats.pull(_directed_cut(graph, _labels(graph, partition)))) // 2
 
 
 def cut_and_overloaded(graph: CSRGraph, partition, k: int, max_block_weights):
@@ -42,7 +43,7 @@ def cut_and_overloaded(graph: CSRGraph, partition, k: int, max_block_weights):
     bw.index_add_(0, lab, graph.node_w.to(torch.int64))
     caps = torch.as_tensor(max_block_weights, dtype=torch.int64, device=graph.device)
     over = (bw > caps).any().to(torch.int64)
-    cut2, overloaded = torch.stack([_directed_cut(graph, lab), over]).tolist()
+    cut2, overloaded = (int(x) for x in sync_stats.pull(torch.stack([_directed_cut(graph, lab), over])))
     return cut2 // 2, bool(overloaded)
 
 

@@ -31,7 +31,8 @@ from .graph.isolated import assign_isolated_nodes, strip_isolated_csr
 from .graph.partitioned import PartitionedGraph
 from .presets import create_context_by_preset_name
 from .refinement.balancer import UnderloadBalancer
-from .utils import Logger, RandomState, log_result_line
+from .utils import Logger, OutputLevel, RandomState, Timer, log_result_line, sync_stats
+from .utils.assertions import HEAVY, LIGHT, kassert
 
 
 def _resolve_device(device) -> torch.device:
@@ -107,6 +108,7 @@ class KaMinPar:
             raise ValueError(f"k={k} exceeds number of nodes {graph.n}")
 
         RandomState.reseed(ctx.seed)
+        Timer.reset_global()
         start = time.perf_counter()
         lp_ctx = ctx.coarsening.lp
         pinned = lp_ctx.weighted_mode
@@ -161,31 +163,31 @@ class KaMinPar:
             self.last_partitioner = partitioner
             self._last = PartitionedGraph.create(p_graph.graph, k, p_graph.partition, max_bw,
                                                  min_bw)
+            part = sync_stats.pull(self._last.partition).astype(np.int32)
+            self._check_output(part, k)
             log_result_line(self._last.edge_cut(), self._last.imbalance(),
                             self._last.is_feasible(), k, time.perf_counter() - start)
-            return self._last.partition.cpu().numpy().astype(np.int32)
+            Logger.log(Timer.global_().machine_readable(), OutputLevel.EXPERIMENT)
+            return part
 
         # Strip isolated nodes on the host; they go to the lightest blocks
         # afterwards.  The work graph is held to the whole graph's minimum
         # block weights.
         row_ptr = graph.host_row_ptr()
-        node_w = graph.node_w.cpu().numpy()
-        stripped = strip_isolated_csr(row_ptr, lambda: graph.col_idx.cpu().numpy(),
-                                      node_w, graph.n, k)
-        edge_w = graph.edge_w.cpu().numpy()
+        col_idx, node_w, edge_w = sync_stats.pull(graph.col_idx, graph.node_w, graph.edge_w)
+        stripped = strip_isolated_csr(row_ptr, lambda: col_idx, node_w, graph.n, k)
         if stripped is not None:
             keep, isolated, new_rp, new_col, new_nw = stripped
             work_graph = from_numpy_csr(new_rp, new_col, new_nw, edge_w,
                                         device=self.device)
             Logger.log(f"Removed {len(isolated)} isolated nodes")
         else:
-            work_graph = from_numpy_csr(row_ptr, graph.col_idx.cpu().numpy(), node_w,
-                                        edge_w, device=self.device)
+            work_graph = from_numpy_csr(row_ptr, col_idx, node_w, edge_w, device=self.device)
 
         partitioner = create_partitioner(ctx, work_graph)
         p_graph = partitioner.partition()
         self.last_partitioner = partitioner
-        work_part = p_graph.partition.cpu().numpy().astype(np.int32)
+        work_part = sync_stats.pull(p_graph.partition).astype(np.int32)
         # Isolated nodes carry no edges: the work graph's cut is the cut.
         cut = p_graph.edge_cut()
         if stripped is not None:
@@ -202,12 +204,22 @@ class KaMinPar:
             # short.  On the whole graph the heavier blocks can donate.
             whole = PartitionedGraph.create(graph.to(self.device), k, part, max_bw, min_bw)
             whole = UnderloadBalancer(ctx.refinement.balancer).refine(whole)
-            part = whole.partition.cpu().numpy().astype(np.int32)
+            part = sync_stats.pull(whole.partition).astype(np.int32)
             cut = whole.edge_cut()
             self._last = PartitionedGraph.create(graph, k, part, max_bw, min_bw)
+        self._check_output(part, k)
         log_result_line(cut, self._last.imbalance(), self._last.is_feasible(), k,
                         time.perf_counter() - start)
+        Logger.log(Timer.global_().machine_readable(), OutputLevel.EXPERIMENT)
         return part
+
+    def _check_output(self, part: np.ndarray, k: int) -> None:
+        """The assertion ladder on the output: the labels' range at the light
+        level, the block weight caps at the heavy level."""
+        kassert(lambda: part.size == 0 or (part.min() >= 0 and part.max() < k),
+                "partition labels out of range", LIGHT)
+        kassert(lambda: self._last.is_feasible(), "partition violates block weight caps",
+                HEAVY)
 
     @property
     def last_partition(self) -> Optional[PartitionedGraph]:

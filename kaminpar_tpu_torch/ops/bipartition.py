@@ -40,6 +40,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import sync_stats
+
 # Packed-stats layout appended to the winning labels (int32):
 # [cut, feasible, winner_lane, num_feasible_lanes, w0, w1].
 STATS_LEN = 6
@@ -555,7 +557,7 @@ def pool_bipartition_device(row_ptr: np.ndarray, col_idx: np.ndarray, node_w: np
         grow_trips=grow_trip_count(pv.n_pad),
         fm_rounds=fm_round_count(pv.n_pad, ipc.fm_num_iterations), chunks=chunks,
     )
-    host = packed.cpu().numpy()  # the bisection's one readback
+    host = sync_stats.pull(packed)  # the bisection's one readback
     wall = time.perf_counter() - t0
 
     labels = host[:n].astype(np.int32)

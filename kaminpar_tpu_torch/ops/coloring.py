@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import sync_stats
 from .segment import run_starts2, segment_max, segment_sum
 
 MAX_COLORS = 62
@@ -99,7 +100,7 @@ def color_graph(draw_prio: Callable[[int], torch.Tensor], edge_u, col_idx, node_
     degrades."""
     colors = torch.where(node_mask, UNCOLORED, 0).to(torch.int32)
     i = 0
-    while i < max_rounds and bool((colors < 0).any()):
+    while i < max_rounds and sync_stats.pull((colors < 0).any()):
         colors = coloring_round(colors, draw_prio(i), edge_u, col_idx, n=n)
         i += 1
     return colors, i

@@ -6,6 +6,11 @@
 3. stable sort by (coarse_u, coarse_v) and sum the weights of each run,
 4. compact the runs and build the coarse CSR.
 
+A contraction reads back once (``utils/sync_stats.pull``): the coarse node
+and edge counts and the largest coarse node weight, packed into one small
+tensor.  Everything else stays on the device: no boolean-mask index, no
+``bincount``.
+
 Deterministic, so it equals the JAX package array for array.  The labels
 cover the graph's PaddedView; pad nodes carry the anchor label and form the
 pure-padding cluster, always the last coarse id, which is dropped.
@@ -18,21 +23,27 @@ from typing import Tuple
 import torch
 
 from ..graph.csr import CSRGraph
+from ..utils import sync_stats
 from .segment import run_ids, run_starts2, segment_sum
 
 
 def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
-    """Returns (coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr):
-    coarse ids over the padded node space (the last coarse id is the
-    padding cluster), compacted coarse edges sorted by (u, v), and the
-    coarse row_ptr over the first n_c + 1 entries."""
+    """Returns (coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr,
+    max_node_w): coarse ids over the padded node space (the last coarse id
+    is the padding cluster), the compacted coarse edges sorted by (u, v),
+    the coarse row_ptr over the first n_c + 1 entries and the largest
+    coarse node weight.  The one readback of a contraction is a packed
+    (n_c, m_c, max node weight) tensor; every other step keeps its sizes
+    on the device or takes them from that readback."""
     n = int(labels.shape[0])
+    m = int(col_idx.shape[0])
     dev = labels.device
     present = torch.zeros(n, dtype=torch.int32, device=dev)
-    present[labels.long()] = 1
+    # index_fill_, not an indexed assignment of 1, which copies the 1 to
+    # the card and waits for it
+    present.index_fill_(0, labels.long(), 1)
     cmap = torch.cumsum(present, 0, dtype=torch.int32) - 1
     coarse_of = cmap[labels]
-    n_c = int(present.sum())
     c_node_w = segment_sum(node_w, coarse_of, n)
 
     cu = coarse_of[edge_u]
@@ -46,25 +57,35 @@ def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
     sw = torch.where(keep[order], edge_w[order], torch.zeros_like(edge_w[order]))
     first = run_starts2(su, sv)
     rid = run_ids(first)
-    run_w = segment_sum(sw, rid, int(edge_w.shape[0]))
+    run_w = segment_sum(sw, rid, m)
+    # The kept runs are runs 0 .. m_c - 1 (the dropped edges sort last), so
+    # a kept run's first slot goes to position rid, and the degree of a
+    # coarse node counts the kept runs it starts.
     valid = first & (su < n)
-    out_u = su[valid].to(torch.int32)
-    out_v = sv[valid].to(torch.int32)
-    out_w = run_w[rid[valid]]
-    deg_c = torch.bincount(out_u, minlength=n)
+    deg_c = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(valid, su, torch.zeros_like(su)), valid.to(torch.int32))
     row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                          torch.cumsum(deg_c, 0)]).to(torch.int32)
-    return coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr
+    stats = torch.stack([present.sum(dtype=torch.int64), valid.sum(dtype=torch.int64),
+                         c_node_w.max().to(torch.int64)])
+    n_c, m_c, max_node_w = (int(x) for x in sync_stats.pull(stats))
+    slot = torch.where(valid, rid.to(torch.int64), torch.full_like(su, m_c))
+    out_u = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, su)
+    out_v = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, sv)
+    out_w = run_w[:m_c]
+    return (coarse_of, n_c, c_node_w, out_u[:m_c].to(torch.int32),
+            out_v[:m_c].to(torch.int32), out_w, row_ptr, max_node_w)
 
 
 def _coarse_graph(outs, n_fine: int, total_node_weight, device):
     """The coarse graph and fine -> coarse map of ``_contract_core``'s
     outputs; the pure-padding anchor cluster (always last) is dropped."""
-    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr = outs
+    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr, max_node_w = outs
     n_c -= 1
     coarse = CSRGraph(row_ptr[: n_c + 1], out_v, c_node_w[:n_c], out_w,
                       edge_u=out_u, device=device)
     coarse._total_node_weight = total_node_weight
+    coarse._max_node_weight = max_node_w if n_c > 0 else 0
     return coarse, coarse_of[:n_fine]
 
 

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..graph.device_compressed import DeviceCompressedView
+from ..utils import sync_stats
 from .bucketed_gains import (
     I32MAX, _heavy_moves, assemble_moves, bucketed_best_moves, draw_ties, lookup,
 )
@@ -249,14 +250,14 @@ def lp_iterate_bucketed(state: LPState, draw: Callable[[int], LPDraws], layout,
     """Up to ``max_iterations`` rounds of :func:`lp_round_bucketed`; stops
     once a round moves at most ``min_moved`` nodes.  ``draw(i)`` gives round
     i's draws.  The moved count is read back once per round."""
-    state = state._replace(num_moved=torch.tensor(
-        I32MAX, dtype=torch.int32, device=state.labels.device))
+    state = state._replace(num_moved=torch.full(
+        (), I32MAX, dtype=torch.int32, device=state.labels.device))
     moved = I32MAX
     i = 0
     while i < max_iterations and moved > min_moved:
         state = lp_round_bucketed(state, draw(i), layout, node_w, max_label_weights,
                                   **round_kwargs)
-        moved = int(state.num_moved)
+        moved = int(sync_stats.pull(state.num_moved))
         i += 1
     return state
 

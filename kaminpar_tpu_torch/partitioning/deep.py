@@ -46,12 +46,14 @@ from ..graph.compressed import CompressedGraph
 from ..graph.csr import CSRGraph, from_numpy_csr
 from ..graph.device_compressed import build_device_view
 from ..graph.partitioned import PartitionedGraph
-from ..initial.bipartitioner import HostCSR, extract_all_subgraphs, recursive_bipartition
+from ..initial.bipartitioner import (HostCSR, extract_all_subgraphs, recursive_bipartition,
+                                     resolve_ip_backend)
 from ..refinement.balancer import _balance_round, draw_balance_round
-from ..utils import RandomState, platform
+from ..utils import RandomState, platform, sync_stats
 from ..utils.logger import Logger, OutputLevel
+from ..utils.timer import ScopeClock, Timer, scoped_timer
 from .extension import extend_partition_device
-from .kway import graph_to_host
+from .kway import PHASE_SCOPES, graph_to_host
 from .partition_utils import compute_k_for_n, intermediate_block_weights, split_offsets
 
 
@@ -135,8 +137,9 @@ def _extend_partition_host(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k:
     def run_job(job):
         b, lo, sub_k, sub, nodes, budgets = job
         t0 = time.perf_counter()
-        with _on_device(graph.device), RandomState.scoped(
-                base_seed ^ (b * 0x9E3779B9 & 0x7FFFFFFF)):
+        # the job's readbacks count against the extension, not "untracked"
+        with _on_device(graph.device), sync_stats.scoped("extend_partition"), \
+                RandomState.scoped(base_seed ^ (b * 0x9E3779B9 & 0x7FFFFFFF)):
             if sub_k >= 4 and sub.n >= ctx.initial_partitioning.nested_extension_n:
                 kind = "nested"
                 subpart = _nested_partition(sub, sub_k, budgets, ctx, graph.device)
@@ -151,8 +154,16 @@ def _extend_partition_host(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k:
     if todo:
         t0 = time.perf_counter()
         workers = platform.extension_workers(len(todo), graph.device)
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            results = list(pool.map(run_job, todo))
+        # The jobs' scopes would land in the workers' subtrees and merge as
+        # top-level phases: the timer records none of them, as the JAX
+        # package's does not.
+        timer = Timer.global_()
+        timer.disable()
+        try:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                results = list(pool.map(run_job, todo))
+        finally:
+            timer.enable()
         jobs["pooled_s"] += time.perf_counter() - t0
         for nodes, subpart, kind, seconds in results:
             out[nodes] = subpart
@@ -177,7 +188,8 @@ def _nested_partition(sub: HostCSR, sub_k: int, budgets: np.ndarray, ctx: Contex
         p = DeepMultilevelPartitioner(sub_ctx, g).partition()
         score = (not p.is_feasible(), p.edge_cut())
         if best_score is None or score < best_score:
-            best_part, best_score = p.partition.cpu().numpy().astype(np.int32), score
+            best_part = sync_stats.pull(p.partition, phase="extend_partition").astype(np.int32)
+            best_score = score
     return best_part
 
 
@@ -194,8 +206,11 @@ class DeepMultilevelPartitioner:
         self.communities = communities
         self.communities_k = communities_k
         self.device = graph.device if graph is not None else torch.device(device)
-        # Host seconds of the three phases of the last partition() call
-        # (and of the extension steps inside uncoarsening: the summed
+        # Host seconds of the last partition() call: its scopes in the
+        # timer tree ("partitioning" and, under it, "coarsening",
+        # "initial_partitioning", "uncoarsening": the projections, and
+        # "extend_partition" as "uncoarsening.extension"), and of the
+        # extension steps inside uncoarsening (the summed
         # seconds of the recursive-bisection and nested-pipeline jobs,
         # which overlap in the thread pool, the wall of the pooled
         # sections and of device extension; see new_job_stats), the number
@@ -207,6 +222,12 @@ class DeepMultilevelPartitioner:
         self.coarsest = {}
         self.num_levels = 0
         self.level_n = []
+        # Its coarsening's contractions and the readbacks counted in the
+        # "coarsening" phase meanwhile (one each).
+        self.contractions = 0
+        self.coarsening_pulls = 0
+        # the readbacks of its initial partitioning (of the coarsest graph)
+        self.ip_pulls = 0
         # The DeviceCompressedView the finest level ran off, if any.
         self.compressed_view = None
 
@@ -247,7 +268,7 @@ class DeepMultilevelPartitioner:
         dev = p_graph.graph.device
         part = p_graph.partition
         bad = torch.as_tensor(blk_comm, dtype=torch.int32, device=dev)[part.long()] != communities
-        if bool(bad.any()):
+        if sync_stats.pull(bad.any()):
             pre = torch.as_tensor(pre_part, device=dev).to(torch.int32)
             p_graph = p_graph.with_partition(torch.where(bad, pre, part))
             if not p_graph.is_feasible():
@@ -275,7 +296,7 @@ class DeepMultilevelPartitioner:
         for r in range(self.ctx.refinement.balancer.max_num_rounds):
             labels, flags = _balance_round(labels, draw(r), bv, pv.node_w, max_bw,
                                            k=p_graph.k, group_of=group_of)
-            num_moved, still = flags.tolist()
+            num_moved, still = sync_stats.pull(flags)
             if not still or num_moved == 0:
                 break
         return p_graph.with_partition(labels[: pv.n])
@@ -284,86 +305,108 @@ class DeepMultilevelPartitioner:
         ctx = self.ctx
         k = ctx.partition.k
         C = ctx.coarsening.contraction_limit
-        t0 = time.perf_counter()
+        clock = ScopeClock("partitioning", PHASE_SCOPES)
         cview = None
         if self.graph is None:
-            cview = build_device_view(ctx.compression, self.compressed, self.device)
-            if cview is not None and ctx.coarsening.algorithm != ClusteringAlgorithm.LP:
-                raise ValueError("the compressed view is clustered by LP only; set "
-                                 "compression.device_decode to 'off' for "
-                                 f"{ctx.coarsening.algorithm.value}")
-            self.compressed_view = cview
-            if cview is None:
+            if ctx.coarsening.algorithm != ClusteringAlgorithm.LP:
+                # Only LP clusters off the compressed stream: the others
+                # get the dense CSR, decompressed onto the device up front.
+                Logger.log(f"  terapart: {ctx.coarsening.algorithm.value} clusters the dense "
+                           f"CSR; decompressing the input onto {self.device}")
                 self.graph = self.compressed.decompress(self.device)
+            else:
+                sync_pre_cb = sync_stats.phase_count("compressed_build")
+                with scoped_timer("compressed_build"):
+                    cview = build_device_view(ctx.compression, self.compressed, self.device)
+                # host packing and host-to-device copies: no readback
+                sync_stats.assert_phase_budget("compressed_build", 0, since=sync_pre_cb)
+                self.compressed_view = cview
+                if cview is None:
+                    self.graph = self.compressed.decompress(self.device)
         coarsener = ClusterCoarsener(ctx, self.graph, compressed_view=cview)
         if self.communities is not None:
             coarsener.set_communities(self.communities)
         n0 = coarsener.current_n
-        coarsest = coarsener.coarsen(k, ctx.partition.epsilon, 2 * C)
-        self.level_n = [n0] + [level.graph.n for level in coarsener.hierarchy]
-        if self.compressed is not None and coarsener.num_levels > 0:
-            # Only the compressed form and the coarse graphs stay resident
-            # until uncoarsening is back at level 0.
-            coarsener.release_input_graph(self.compressed)
-            self.graph = None
-        self.num_levels = coarsener.num_levels
-        t1 = time.perf_counter()
-
-        rng = RandomState.numpy_rng()
-        if self.communities is not None:
-            # v-cycle: the coarsest partition is the previous cycle's,
-            # projected to the coarsest level
-            cur_k = self.communities_k
-            part = coarsener.current_communities.cpu().numpy().astype(np.int32)
-        else:
-            cur_k = min(k, compute_k_for_n(coarsest.n, C, k))
-            budgets = intermediate_block_weights(
-                np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
-            )
-            part = recursive_bipartition(
-                graph_to_host(coarsest), cur_k, budgets, rng, ctx.initial_partitioning,
-                device=coarsest.device,
-            )
-        self.coarsest = dict(n=coarsest.n, m=coarsest.m, k0=cur_k)
-        Logger.log(
-            f"  deep: coarsest n={coarsest.n} m={coarsest.m} "
-            f"levels={coarsener.num_levels} k0={cur_k}",
-            OutputLevel.DEBUG,
-        )
-        t2 = time.perf_counter()
-        p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
-        p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
-
-        extension_s = 0.0
         jobs = new_job_stats()
-        while True:
-            graph = coarsener.current_graph
-            target_k = compute_k_for_n(graph.n, C, k) if coarsener.num_levels > 0 else k
-            if cur_k < target_k:
-                te = time.perf_counter()
-                part = extend_partition(
-                    graph, p_graph.partition.cpu().numpy(), cur_k, target_k, ctx, jobs
+        with scoped_timer("partitioning"):
+            sync_pre = sync_stats.phase_count("coarsening")
+            coarsest = coarsener.coarsen(k, ctx.partition.epsilon, 2 * C)
+            self.contractions = coarsener.contractions
+            self.coarsening_pulls = sync_stats.phase_count("coarsening") - sync_pre
+            # one readback a contraction (ops/contraction.py)
+            sync_stats.assert_phase_budget("coarsening", coarsener.contractions,
+                                           since=sync_pre)
+            self.level_n = [n0] + [level.graph.n for level in coarsener.hierarchy]
+            if self.compressed is not None and coarsener.num_levels > 0:
+                # Only the compressed form and the coarse graphs stay resident
+                # until uncoarsening is back at level 0.
+                coarsener.release_input_graph(self.compressed)
+                self.graph = None
+            self.num_levels = coarsener.num_levels
+
+            rng = RandomState.numpy_rng()
+            if self.communities is not None:
+                # v-cycle: the coarsest partition is the previous cycle's,
+                # projected to the coarsest level
+                cur_k = self.communities_k
+                part = sync_stats.pull(coarsener.current_communities,
+                                       phase="initial_partitioning").astype(np.int32)
+                with scoped_timer("initial_partitioning"):
+                    pass
+            else:
+                cur_k = min(k, compute_k_for_n(coarsest.n, C, k))
+                budgets = intermediate_block_weights(
+                    np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
                 )
-                extension_s += time.perf_counter() - te
-                cur_k = target_k
-                p_graph = self._refine(graph, part, cur_k, coarsener.num_levels > 0)
-                p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
-            if coarsener.num_levels == 0:
-                break
-            fine_part = coarsener.uncoarsen(p_graph.partition)
-            p_graph = self._refine(
-                coarsener.current_graph, fine_part, cur_k, coarsener.num_levels > 0
+                sync_pre_ip = sync_stats.phase_count("initial_partitioning")
+                with scoped_timer("initial_partitioning"):
+                    part = recursive_bipartition(
+                        graph_to_host(coarsest), cur_k, budgets, rng,
+                        ctx.initial_partitioning, device=coarsest.device,
+                    )
+                self.ip_pulls = sync_stats.phase_count("initial_partitioning") - sync_pre_ip
+                if resolve_ip_backend(ctx.initial_partitioning, coarsest.device) == "device":
+                    # one packed graph pull and at most one readback a
+                    # bisection (cur_k - 1 of them): the device pool's budget
+                    sync_stats.assert_phase_budget("initial_partitioning", max(cur_k, 1),
+                                                   since=sync_pre_ip)
+            self.coarsest = dict(n=coarsest.n, m=coarsest.m, k0=cur_k)
+            Logger.log(
+                f"  deep: coarsest n={coarsest.n} m={coarsest.m} "
+                f"levels={coarsener.num_levels} k0={cur_k}",
+                OutputLevel.DEBUG,
             )
-            p_graph = self._restrict(p_graph, fine_part, cur_k, coarsener.current_communities)
-        self.phase_seconds = {
-            "coarsening": t1 - t0,
-            "initial_partitioning": t2 - t1,
-            "uncoarsening": time.perf_counter() - t2,
-            "uncoarsening.extension": extension_s,
+            p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
+            p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
+
+            sync_pre_cd = sync_stats.phase_count("compressed_decode")
+            while True:
+                graph = coarsener.current_graph
+                target_k = compute_k_for_n(graph.n, C, k) if coarsener.num_levels > 0 else k
+                if cur_k < target_k:
+                    with scoped_timer("extend_partition"):
+                        part = extend_partition(graph, sync_stats.pull(p_graph.partition),
+                                                cur_k, target_k, ctx, jobs)
+                    cur_k = target_k
+                    p_graph = self._refine(graph, part, cur_k, coarsener.num_levels > 0)
+                    p_graph = self._restrict(p_graph, part, cur_k,
+                                             coarsener.current_communities)
+                if coarsener.num_levels == 0:
+                    break
+                fine_part = coarsener.uncoarsen(p_graph.partition)
+                p_graph = self._refine(
+                    coarsener.current_graph, fine_part, cur_k, coarsener.num_levels > 0
+                )
+                p_graph = self._restrict(p_graph, fine_part, cur_k,
+                                         coarsener.current_communities)
+            # the finest level's decode on the device reads nothing back
+            sync_stats.assert_phase_budget("compressed_decode", 0, since=sync_pre_cd)
+        self.phase_seconds = clock.seconds()
+        self.phase_seconds.update({
             "uncoarsening.extension.bisections": jobs["bisections_s"],
             "uncoarsening.extension.nested": jobs["nested_s"],
             "uncoarsening.extension.pooled": jobs["pooled_s"],
             "uncoarsening.extension.device": jobs["device_s"],
-        }
+        })
         self.extension_jobs = {key: jobs[key] for key in ("bisections", "nested", "device")}
         return p_graph

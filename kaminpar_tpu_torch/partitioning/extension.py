@@ -29,7 +29,7 @@ from ..context import Context
 from ..graph.csr import CSRGraph
 from ..ops import lp
 from ..refinement.balancer import _balance_round, draw_balance_round
-from ..utils import RandomState
+from ..utils import RandomState, sync_stats
 from ..utils.logger import Logger, OutputLevel
 from .partition_utils import intermediate_block_weights, split_offsets
 
@@ -55,7 +55,7 @@ def extend_partition_device(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k
     coarsener.set_communities(torch.from_numpy(np.asarray(part, dtype=np.int32)))
     target_n = max(new_k * ipc.device_extension_cpb, 2 * ctx.coarsening.contraction_limit)
     coarsest = coarsener.coarsen(new_k, ctx.partition.epsilon, target_n)
-    coarse_comm = coarsener.current_communities.cpu().numpy()
+    coarse_comm = sync_stats.pull(coarsener.current_communities, phase="extend_partition")
     Logger.log(f"  device-ext: n={graph.n} coarsened to {coarsest.n} "
                f"({coarsener.num_levels} nested levels) for k {cur_k}->{new_k}",
                OutputLevel.DEBUG)
@@ -72,7 +72,7 @@ def extend_partition_device(graph: CSRGraph, part: np.ndarray, cur_k: int, new_k
         if coarsener.num_levels == 0:
             break
         labels = coarsener.uncoarsen(labels)
-    return labels.cpu().numpy().astype(np.int32)
+    return sync_stats.pull(labels, phase="extend_partition").astype(np.int32)
 
 
 def _restricted_refine(graph: CSRGraph, labels: torch.Tensor, comm: torch.Tensor,
@@ -93,7 +93,7 @@ def _restricted_refine(graph: CSRGraph, labels: torch.Tensor, comm: torch.Tensor
     for _ in range(ctx.refinement.balancer.max_num_rounds):
         padded, flags = _balance_round(padded, draw_balance_round(gen, bv, pv.n_pad), bv,
                                        pv.node_w, max_bw, k=new_k, group_of=group_of)
-        num_moved, still = flags.tolist()
+        num_moved, still = sync_stats.pull(flags)
         if not still or num_moved == 0:
             break
 

@@ -18,6 +18,8 @@ from ..graph.csr import CSRGraph, from_numpy_csr
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import extract_subgraph
 from ..refinement.balancer import UnderloadBalancer
+from ..utils import sync_stats
+from ..utils.timer import scoped_timer
 from .kway import KWayMultilevelPartitioner, graph_to_host
 
 
@@ -41,7 +43,7 @@ class RBMultilevelPartitioner:
         sub_ctx.partition.min_block_weights = None
         p = KWayMultilevelPartitioner(sub_ctx, graph).partition()
         self.bisections += 1
-        return p.partition.cpu().numpy().astype(np.int32)
+        return sync_stats.pull(p.partition).astype(np.int32)
 
     def _recurse(self, graph: CSRGraph, k: int, max_bw: np.ndarray) -> np.ndarray:
         if k <= 1 or graph.n == 0:
@@ -69,8 +71,9 @@ class RBMultilevelPartitioner:
         self.bisections = 0
         self.subgraph_devices = Counter()
         t0 = time.perf_counter()
-        part = self._recurse(self.graph, ctx.partition.k,
-                             np.asarray(ctx.partition.max_block_weights, dtype=np.int64))
+        with scoped_timer("partitioning"):
+            part = self._recurse(self.graph, ctx.partition.k,
+                                 np.asarray(ctx.partition.max_block_weights, dtype=np.int64))
         p_graph = PartitionedGraph.create(self.graph, ctx.partition.k, part,
                                           ctx.partition.max_block_weights,
                                           ctx.partition.min_block_weights)

@@ -33,7 +33,8 @@ from ..graph.bucketed import BucketedView
 from ..graph.partitioned import PartitionedGraph
 from ..ops.bucketed_gains import bucketed_best_moves, draw_ties
 from ..ops.segment import first_argmin, segment_max, segment_min, segment_sum
-from ..utils import RandomState
+from ..utils import RandomState, sync_stats
+from ..utils.timer import scoped_timer
 from .refiner import Refiner
 
 _NEG = -3.4e38
@@ -122,7 +123,9 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
             torch.where(block_weights == gw_min[group_of], blk, torch.full_like(blk, k)),
             group_of, k)
         light = torch.clamp(light_of_group[group_of[labels]], 0, k - 1)
-    fallback_ok = block_weights[light] + node_w <= max_bw[light]
+    # a one-element index: a 0-d one is read back to the host
+    at = light.reshape(-1) if light.dim() == 0 else light
+    fallback_ok = block_weights[at] + node_w <= max_bw[at]
     use_fb = mover & ~has & fallback_ok & (labels != light)
     target = torch.where(use_fb, light, target)
     tconn = torch.where(use_fb, zero, tconn)
@@ -204,14 +207,15 @@ class OverloadBalancer(Refiner):
                                  device=graph.device)
         labels = pv.pad_node_array(p_graph.partition, 0)
         gen = RandomState.generator(graph.device)
-        for _ in range(self.ctx.max_num_rounds):
-            labels, flags = _balance_round(
-                labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
-                max_bw, k=p_graph.k,
-            )
-            num_moved, still = flags.tolist()
-            if not still or num_moved == 0:
-                break
+        with scoped_timer("overload_balancer"):
+            for _ in range(self.ctx.max_num_rounds):
+                labels, flags = _balance_round(
+                    labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
+                    max_bw, k=p_graph.k,
+                )
+                num_moved, still = sync_stats.pull(flags)
+                if not still or num_moved == 0:
+                    break
         return p_graph.with_partition(labels[: pv.n])
 
 
@@ -235,12 +239,13 @@ class UnderloadBalancer(Refiner):
                                  device=graph.device)
         labels = pv.pad_node_array(p_graph.partition, 0)
         gen = RandomState.generator(graph.device)
-        for _ in range(self.ctx.max_num_rounds):
-            labels, flags = _underload_round(
-                labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
-                max_bw, min_bw, k=p_graph.k,
-            )
-            num_moved, still = flags.tolist()
-            if not still or num_moved == 0:
-                break
+        with scoped_timer("underload_balancer"):
+            for _ in range(self.ctx.max_num_rounds):
+                labels, flags = _underload_round(
+                    labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
+                    max_bw, min_bw, k=p_graph.k,
+                )
+                num_moved, still = sync_stats.pull(flags)
+                if not still or num_moved == 0:
+                    break
         return p_graph.with_partition(labels[: pv.n])

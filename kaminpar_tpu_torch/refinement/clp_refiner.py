@@ -20,7 +20,8 @@ from ..graph.partitioned import PartitionedGraph
 from ..ops import lp
 from ..ops.bucketed_gains import I32MAX
 from ..ops.coloring import color_graph, num_colors_device
-from ..utils import RandomState
+from ..utils import RandomState, sync_stats
+from ..utils.timer import scoped_timer
 from .refiner import Refiner
 
 
@@ -39,26 +40,28 @@ class CLPRefiner(Refiner):
         part = pv.pad_node_array(p_graph.partition, 0)
         gen = RandomState.generator(dev)
 
-        mask = torch.arange(pv.n_pad, device=dev) < pv.n
-        raw, _ = color_graph(
-            lambda i: torch.randint(0, I32MAX, (pv.n_pad,), generator=gen, device=dev,
-                                    dtype=torch.int32),
-            pv.edge_u, pv.col_idx, mask, n=pv.n_pad)
-        colors = torch.clamp(raw, min=0)
-        nc = int(num_colors_device(colors, mask))
-        state = lp.init_state(part, pv.node_w, k_pad)
-        before = p_graph.edge_cut()
-        allow_tie_moves = self.ctx.allow_tie_moves
-        for _ in range(self.ctx.num_iterations):
-            state = lp.clp_iterate_colors(
-                state,
-                lambda c: lp.draw_lp_round(gen, bv, pv.n_pad,
-                                           allow_tie_moves=allow_tie_moves),
-                bv, pv.node_w, max_w, colors, nc, num_labels=k_pad,
-                allow_tie_moves=allow_tie_moves,
-            )
-            if int(state.num_moved) == 0:
-                break
+        with scoped_timer("clp_refinement", sync=True) as ts:
+            mask = torch.arange(pv.n_pad, device=dev) < pv.n
+            raw, _ = color_graph(
+                lambda i: torch.randint(0, I32MAX, (pv.n_pad,), generator=gen, device=dev,
+                                        dtype=torch.int32),
+                pv.edge_u, pv.col_idx, mask, n=pv.n_pad)
+            colors = torch.clamp(raw, min=0)
+            nc = int(sync_stats.pull(num_colors_device(colors, mask)))
+            state = lp.init_state(part, pv.node_w, k_pad)
+            before = p_graph.edge_cut()
+            allow_tie_moves = self.ctx.allow_tie_moves
+            for _ in range(self.ctx.num_iterations):
+                state = lp.clp_iterate_colors(
+                    state,
+                    lambda c: lp.draw_lp_round(gen, bv, pv.n_pad,
+                                               allow_tie_moves=allow_tie_moves),
+                    bv, pv.node_w, max_w, colors, nc, num_labels=k_pad,
+                    allow_tie_moves=allow_tie_moves,
+                )
+                if int(sync_stats.pull(state.num_moved)) == 0:
+                    break
+            ts.note(state.labels)
         # Tie diffusion can wander: keep the better of input and output.
         out = p_graph.with_partition(state.labels[: pv.n])
         if out.edge_cut() > before:

@@ -30,7 +30,8 @@ import numpy as np
 
 from ..context import FMContext
 from ..graph.partitioned import PartitionedGraph
-from ..utils import RandomState
+from ..utils import RandomState, sync_stats
+from ..utils.timer import scoped_timer
 from ..utils.logger import Logger, OutputLevel
 from .refiner import Refiner
 
@@ -340,15 +341,21 @@ class FMRefiner(Refiner):
                 FM_STATS["skipped"] += 1
             return p_graph
         t0 = time.perf_counter()
+        with scoped_timer("fm_refinement"):
+            return self._refine(p_graph, g, t0)
+
+    def _refine(self, p_graph: PartitionedGraph, g, t0: float) -> PartitionedGraph:
         # One transfer per array off the device.
         row_ptr = g.host_row_ptr().astype(np.int64)
-        col_idx = g.col_idx.cpu().numpy().astype(np.int32, copy=False)
-        ew64 = g.edge_w.cpu().numpy().astype(np.int64)
+        col_idx, ew64, node_w, part = sync_stats.pull(g.col_idx, g.edge_w, g.node_w,
+                                                      p_graph.partition)
+        col_idx = col_idx.astype(np.int32, copy=False)
+        ew64 = ew64.astype(np.int64)
         small_w = int(ew64.sum()) < 2**31
         edge_w = ew64.astype(np.int32) if small_w else ew64
-        node_w = g.node_w.cpu().numpy().astype(np.int64)
+        node_w = node_w.astype(np.int64)
         u_arr = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(row_ptr))
-        part = p_graph.partition.cpu().numpy().astype(np.int32).copy()
+        part = part.astype(np.int32).copy()
         max_bw = np.asarray(p_graph.max_block_weights, dtype=np.int64)
         k = p_graph.k
         bw = np.bincount(part, weights=node_w, minlength=k).astype(np.int64)

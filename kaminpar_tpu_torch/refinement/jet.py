@@ -36,6 +36,7 @@ from ..graph.partitioned import PartitionedGraph
 from ..ops.bucketed_gains import bucketed_best_moves, bucketed_neighbor_reduce, draw_ties
 from ..ops.segment import segment_sum
 from ..utils import RandomState
+from ..utils.timer import scoped_timer
 from .balancer import OverloadBalancer
 from .refiner import Refiner
 
@@ -127,29 +128,30 @@ class JetRefiner(Refiner):
         locked = torch.zeros(pv.n_pad, dtype=torch.bool, device=graph.device)
         fruitless = 0
         rounds = 0
-        for it in range(ctx.num_iterations):
-            # Linear temperature anneal from initial to final.
-            frac = it / max(ctx.num_iterations - 1, 1)
-            temp = torch.tensor(t0 + (t1 - t0) * frac, dtype=torch.float32,
-                                device=graph.device)
-            labels, moved = _jet_move_round(labels, locked, draw_ties(gen, bv), bv,
-                                            pv.node_w, max_bw, temp, k=k)
-            rounds += 1
-            locked = moved
-            cur = self.balancer.refine(p_graph.with_partition(labels[: pv.n]))
-            labels = pv.pad_node_array(cur.partition, 0)
-            cut, overloaded = metrics.cut_and_overloaded(graph, cur.partition, k,
-                                                         p_graph.max_block_weights)
-            if cut <= best_cut and not overloaded:
-                if best_cut - cut > (1.0 - ctx.fruitless_threshold) * best_cut:
-                    fruitless = 0
+        with scoped_timer("jet_refinement"):
+            for it in range(ctx.num_iterations):
+                # Linear temperature anneal from initial to final.
+                frac = it / max(ctx.num_iterations - 1, 1)
+                temp = torch.full((), t0 + (t1 - t0) * frac, dtype=torch.float32,
+                                  device=graph.device)
+                labels, moved = _jet_move_round(labels, locked, draw_ties(gen, bv), bv,
+                                                pv.node_w, max_bw, temp, k=k)
+                rounds += 1
+                locked = moved
+                cur = self.balancer.refine(p_graph.with_partition(labels[: pv.n]))
+                labels = pv.pad_node_array(cur.partition, 0)
+                cut, overloaded = metrics.cut_and_overloaded(graph, cur.partition, k,
+                                                             p_graph.max_block_weights)
+                if cut <= best_cut and not overloaded:
+                    if best_cut - cut > (1.0 - ctx.fruitless_threshold) * best_cut:
+                        fruitless = 0
+                    else:
+                        fruitless += 1
+                    best, best_cut = cur, cut
                 else:
                     fruitless += 1
-                best, best_cut = cur, cut
-            else:
-                fruitless += 1
-            if fruitless >= ctx.num_fruitless_iterations:
-                break
+                if fruitless >= ctx.num_fruitless_iterations:
+                    break
         with _stats_lock:
             JET_STATS["calls"] += 1
             JET_STATS["rounds"] += rounds

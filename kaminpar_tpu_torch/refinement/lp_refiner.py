@@ -16,6 +16,7 @@ from ..context import LabelPropagationContext
 from ..graph.partitioned import PartitionedGraph
 from ..ops import lp
 from ..utils import RandomState
+from ..utils.timer import scoped_timer
 from .refiner import Refiner
 
 
@@ -37,13 +38,15 @@ class LPRefiner(Refiner):
         gen = RandomState.generator(graph.device)
         active_prob = self.ctx.active_prob
         allow_tie_moves = self.ctx.allow_tie_moves
-        state = lp.lp_iterate_bucketed(
-            state,
-            lambda _: lp.draw_lp_round(gen, layout, pv.n_pad, active_prob=active_prob,
-                                       allow_tie_moves=allow_tie_moves),
-            layout, pv.node_w, max_w,
-            int(self.ctx.min_moved_fraction * pv.n), self.ctx.num_iterations,
-            num_labels=k_pad, active_prob=active_prob,
-            allow_tie_moves=allow_tie_moves,
-        )
+        with scoped_timer("lp_refinement", sync=True) as ts:
+            state = lp.lp_iterate_bucketed(
+                state,
+                lambda _: lp.draw_lp_round(gen, layout, pv.n_pad, active_prob=active_prob,
+                                           allow_tie_moves=allow_tie_moves),
+                layout, pv.node_w, max_w,
+                int(self.ctx.min_moved_fraction * pv.n), self.ctx.num_iterations,
+                num_labels=k_pad, active_prob=active_prob,
+                allow_tie_moves=allow_tie_moves,
+            )
+            ts.note(state.labels)
         return p_graph.with_partition(state.labels[: pv.n])

@@ -1,0 +1,72 @@
+"""Canonical phase-name registry (counterpart of
+``kaminpar_tpu/telemetry/phases.py``).
+
+One list of phase names shared by the timer tree (``utils/timer.scoped_timer``
+pushes them as sync-accounting phases), :mod:`..utils.sync_stats` (budget
+assertions key on them) and the run trace (spans carry them).  A budget
+asserted against a misspelled phase counts a phase nobody pushed and passes
+trivially, so :func:`check` warns (once per name and process) when a scope
+opens under an unregistered name, and ``tests/test_torch_telemetry.py``
+scans the package for phase literals and fails on drift either way.
+
+The names are the JAX package's for every phase the port has.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+# The partitioning spine's phases: every scoped_timer scope in the package
+# uses one of these names.
+CORE_PHASES = (
+    "partitioning",
+    "coarsening",
+    "lp_clustering",
+    "hem_clustering",
+    "initial_partitioning",
+    "extend_partition",
+    "uncoarsening",
+    "lp_refinement",
+    "clp_refinement",
+    "fm_refinement",
+    "jet_refinement",
+    "overload_balancer",
+    "underload_balancer",
+)
+
+# Phases outside the spine.
+AUX_PHASES = (
+    "untracked",          # sync_stats' phase for unscoped pulls
+    # The compressed tier: building the device view (host packing and
+    # host-to-device copies, no readback; asserted with a 0 budget in
+    # partitioning/deep.py) and decoding the finest CSR on the device at
+    # the last uncoarsening step (no readback; asserted).
+    "compressed_build",
+    "compressed_decode",
+)
+
+KNOWN_PHASES = frozenset(CORE_PHASES + AUX_PHASES)
+
+_warned: set = set()
+
+
+def is_known(name: str) -> bool:
+    return name in KNOWN_PHASES
+
+
+def check(name: str) -> bool:
+    """Warn once per process about an unregistered phase name.  Tests and
+    ad-hoc scopes may use any name; the warning keeps a misspelled library
+    phase from escaping the sync budget unseen."""
+    if name in KNOWN_PHASES:
+        return True
+    if name not in _warned:
+        _warned.add(name)
+        warnings.warn(
+            f"kaminpar_tpu_torch: timer phase {name!r} is not in the canonical "
+            "phase registry (kaminpar_tpu_torch/telemetry/phases.py); sync-budget "
+            "assertions and trace readers key on registered names",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    return False

@@ -968,3 +968,54 @@ def test_rb_subgraphs_are_cuda_graphs(cuda):
     assert rb.bisections == 7 and set(rb.subgraph_devices) == {"cuda:0"}
     assert sum(rb.subgraph_devices.values()) == 6
     assert pool["calls"] == 7 and pool["host_bisections"] == 0
+
+
+@pytest.mark.cuda
+def test_default_on_card_reads_back_only_through_pull_in_coarsening(cuda):
+    """The CPU test of the tripwire (tests/test_torch_telemetry.py) on the
+    card, with its synchronizing calls counted: the coarsening's pulls
+    equal its contractions, no implicit pull in coarsening, initial
+    partitioning and uncoarsening, no card sync outside a pull in
+    coarsening and uncoarsening, the armed budgets hold (at most k0 pulls in
+    the initial partitioning)."""
+    from kaminpar_tpu_torch.utils import sync_stats
+
+    g = generators.rmat_graph(12, 16, seed=2)
+    solver = kp.KaMinPar("default")
+    solver.ctx.coarsening.contraction_limit = 128
+    solver.set_graph(g)
+    sync_stats.reset()
+    sync_stats.enable_budget_checks(True)
+    try:
+        with sync_stats.tripwire(), sync_stats.count_device_syncs():
+            solver.compute_partition(16)
+    finally:
+        sync_stats.enable_budget_checks(False)
+    snap = sync_stats.snapshot()
+    sync_stats.reset()
+    scheme = solver.last_partitioner
+    assert scheme.num_levels >= 1 and scheme.coarsening_pulls == scheme.contractions
+    for phase in ("coarsening", "initial_partitioning", "uncoarsening"):
+        assert snap["phases"].get(phase, {"implicit": 0})["implicit"] == 0, snap
+    for phase in ("coarsening", "uncoarsening"):
+        assert snap["device_syncs"].get(phase, 0) == 0, snap["device_syncs"]
+    assert 1 <= scheme.ip_pulls <= max(scheme.coarsest["k0"], 1)
+    assert solver.last_partition.is_feasible()
+
+
+@pytest.mark.cuda
+def test_guard_refuses_a_card_sync_outside_pull(cuda):
+    from kaminpar_tpu_torch.utils import sync_stats
+
+    x = torch.arange(8, device=cuda)
+    with sync_stats.guard():
+        assert sync_stats.pull(x).tolist() == list(range(8))
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            x.cpu()
+    assert x.cpu().tolist() == list(range(8))
+    with sync_stats.count_device_syncs():
+        with sync_stats.scoped("coarsening"):
+            x.sum().item()
+            sync_stats.pull(x)
+    assert sync_stats.device_sync_count("coarsening") == 1
+    sync_stats.reset()
