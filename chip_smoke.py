@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # largek at RMAT scale 22; terapart, jet, kway
                                           # and linear-time-kway 20; default and vcycle
-                                          # 18; the scheme checks 16; strong 14
+                                          # 18; the scheme checks 16; strong 13
     python3 chip_smoke.py --scale 16      # a quicker run
     python3 chip_smoke.py --path-scale 22 # terapart at scale 22 too
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 6's kernels, no path
@@ -155,6 +155,19 @@ which fails the run when it fails:
     threads;
 13. a small graph partitioned on the card (device pool) and on the CPU
     (host pool): both feasible, cuts within 1.3x of each other.
+14. files and entry points, run right after 7: ``rmat_graph(SCHEME_SCALE)``
+    (the host build) written as METIS by the port's ``write_graph`` and read
+    back by the native and the NumPy parser, both equal to the graph, each
+    parser's seconds and MB/s printed; the default path's graph written as
+    ParHIP and partitioned by ``python -m kaminpar_tpu_torch <file> k -P
+    default -o ... --block-sizes ... -E --trace-out ...`` in a subprocess
+    with no ``--device`` (rc 0, phase 7's partition and cut, the block
+    sizes of that partition, a valid trace, its wall printed; its launches
+    are read at its exit through a ``sitecustomize`` hook on its
+    ``PYTHONPATH``); the scale-16 graph's compressed container partitioned
+    by ``cli.main([..., "-P", "terapart"])`` in this process, counters set
+    to 0 just before and read just after: kernel #2 launched, the partition
+    feasible.  Both CLI runs join ``launches_by_path``.
 
 The rating kernels are also timed bucket by bucket: one JSON line per
 bucket with its width, rows, real rows, time and bound, beside the
@@ -220,10 +233,12 @@ POOLED_SERIAL_SCALE, POOLED_SERIAL_K = 12, 64
 # the measured shares with headroom, catch a regression of the colouring.
 CLP_MAX_STRAGGLER_SHARE = 0.01
 CLP_MAX_MONOCHROMATIC_SHARE = 0.2
-# The strong path: KaMinPar("strong") into K blocks of rmat_graph(14); its
-# k-way FM is a sequential host pass, so at the jet path's scale one pass
-# is timed alone, its work bounded to FM_PASS_WORK_FACTOR x n.
-STRONG_SCALE = 14
+# The strong path: KaMinPar("strong") into K blocks of rmat_graph(13) (14
+# until the files-and-entry-points phase joined the script, which then ran
+# 1,097-1,145 s against its 1,100 s budget; strong's 62 s is mostly host
+# FM); its k-way FM is a sequential host pass, so at the jet path's scale
+# one pass is timed alone, its work bounded to FM_PASS_WORK_FACTOR x n.
+STRONG_SCALE = 13
 FM_PASS_WORK_FACTOR = 0.25
 # The other schemes' small functional checks (restricted v-cycle, recursive
 # bisection, HEM coarsening, overlay clustering) run on rmat_graph(16) into
@@ -1515,8 +1530,159 @@ def drive_dense_path(preset: str, phase: str, graph, k: int, eps: float, cut_bou
 
 def phase_main_path(graph, k: int, eps: float):
     cap = CoarsestCapture()
-    info, _, _ = drive_dense_path("default", "main_path", graph, k, eps, 0.95, cap)
-    return info, cap
+    info, _, part = drive_dense_path("default", "main_path", graph, k, eps, 0.95, cap)
+    return info, cap, part
+
+
+# Loaded by the CLI subprocess of phase 14 from its PYTHONPATH: at exit it
+# writes the process's kernel launch counts to the file that
+# CHIP_SMOKE_LAUNCHES names, so that the subprocess's launches join the
+# kernels line.  It changes nothing else of the run.
+LAUNCH_HOOK = """import atexit, json, os, sys
+
+def _dump():
+    mod = sys.modules.get("kaminpar_tpu_torch.ops.lp_kernels")
+    with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+        json.dump(dict(mod.LAUNCHES) if mod else None, f)
+
+atexit.register(_dump)
+"""
+
+
+def parse_rate(read, path: str, graph, what: str) -> dict:
+    """Read ``path`` with ``read`` (three times, the median kept) and hold
+    the arrays to ``graph``'s."""
+    import numpy as np
+
+    walls, got = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = read(path)
+        walls.append(time.perf_counter() - t0)
+    for name in ("row_ptr", "col_idx", "node_w", "edge_w"):
+        if not np.array_equal(getattr(got, name).numpy(), getattr(graph, name).cpu().numpy()):
+            raise AssertionError(f"the {what} parser read {name} wrong")
+    s = sorted(walls)[1]
+    return dict(s=s, mb_per_s=os.path.getsize(path) / s / 1e6, walls_s=walls)
+
+
+def phase_files_and_entry_points(default_graph, default_part, default_cut: int, k: int,
+                                 eps: float) -> dict:
+    """Phase 14: graph files and the entry points users run, on the card.
+    (a) ``rmat_graph(SCHEME_SCALE)`` (the host build) written as METIS and
+    read back by the native and the NumPy parser, each equal to the graph,
+    with its seconds and MB/s; (b) the default path's graph written as
+    ParHIP and partitioned by ``python -m kaminpar_tpu_torch`` in a
+    subprocess with no ``--device``: rc 0, phase 7's partition and cut,
+    the block sizes of that partition, a valid trace; (c) the scale-16
+    graph's compressed container partitioned by ``cli.main`` under
+    ``-P terapart`` in this process, with the launch counters set to 0 just
+    before and read just after: kernel #2 launched, the partition feasible.
+    Returns the launch counts of (b) and (c) as two paths."""
+    import tempfile
+
+    import numpy as np
+
+    from kaminpar_tpu_torch import cli, io as kio
+    from kaminpar_tpu_torch.graph import generators, metrics
+    from kaminpar_tpu_torch.io import native
+    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.telemetry import validate_chrome_trace
+    from kaminpar_tpu_torch.utils import Logger, OutputLevel
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) METIS through both parsers
+        host = generators.rmat_graph(SCHEME_SCALE, 16, seed=1)
+        metis = os.path.join(tmp, "g.metis")
+        t0 = time.perf_counter()
+        kio.write_graph(host, metis)
+        write_s = time.perf_counter() - t0
+        level = Logger.level
+        Logger.level = OutputLevel.QUIET
+        try:
+            rates = dict(native=parse_rate(kio.read_metis, metis, host, "native"))
+            os.environ[native.NO_NATIVE_ENV] = "1"
+            try:
+                rates["numpy"] = parse_rate(kio.read_metis, metis, host, "NumPy")
+            finally:
+                del os.environ[native.NO_NATIVE_ENV]
+        finally:
+            Logger.level = level
+        log(json.dumps(dict(phase="files_metis", graph=f"rmat_graph({SCHEME_SCALE}, 16, seed=1)",
+                            n=host.n, m=host.m, bytes=os.path.getsize(metis), write_s=write_s,
+                            parsers=rates)))
+
+        # (b) the CLI in a subprocess on the default path's graph as ParHIP
+        parhip, part_file, sizes_file, trace_file, launches_file = (
+            os.path.join(tmp, name) for name in
+            ("g.parhip", "g.part", "g.sizes", "g.trace.json", "launches.json"))
+        kio.write_graph(default_graph, parhip)
+        hook_dir = os.path.join(tmp, "hook")
+        os.makedirs(hook_dir)
+        with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+            f.write(LAUNCH_HOOK)
+        env = dict(os.environ, CHIP_SMOKE_LAUNCHES=launches_file,
+                   PYTHONPATH=os.pathsep.join([hook_dir, root]))
+        cmd = [sys.executable, "-m", "kaminpar_tpu_torch", parhip, str(k), "-P", "default",
+               "-o", part_file, "--block-sizes", sizes_file, "-E", "--trace-out", trace_file]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        result = re.search(r"RESULT cut=(\d+) .*time=([0-9.e+-]+)", res.stdout)
+        info = dict(phase="files_cli", graph="the default path's graph, ParHIP",
+                    bytes=os.path.getsize(parhip), rc=res.returncode, wall_s=wall,
+                    partition_s=float(result.group(2)) if result else None,
+                    cut=int(result.group(1)) if result else None, phase7_cut=default_cut)
+        if res.returncode != 0:
+            log(json.dumps(info))
+            raise AssertionError(f"the CLI failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        part = kio.read_partition(part_file)
+        with open(launches_file) as f:
+            cli_launches = json.load(f)
+        with open(trace_file) as f:
+            info["trace"] = validate_chrome_trace(json.load(f))
+        sizes = np.loadtxt(sizes_file, dtype=np.int64)
+        info.update(launches=cli_launches, equal_to_phase7=bool(np.array_equal(part, default_part)),
+                    sizes_equal=bool(np.array_equal(
+                        sizes, metrics.block_weights(default_graph, part, k))))
+        log(json.dumps(info))
+        if not info["equal_to_phase7"] or info["cut"] != default_cut:
+            raise AssertionError("the CLI's partition of the file differs from phase 7's")
+        if not info["sizes_equal"]:
+            raise AssertionError("the CLI's block sizes are not its partition's")
+
+        # (c) the compressed container under -P terapart, in this process
+        compressed, part_c = os.path.join(tmp, "g.compressed"), os.path.join(tmp, "c.part")
+        kio.write_graph(host, compressed)
+        lp_kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main([compressed, str(k), "-P", "terapart", "-o", part_c, "-q"])
+        finally:
+            Logger.level = level
+        import torch
+
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        terapart_launches = dict(lp_kernels.LAUNCHES)
+        part = kio.read_partition(part_c)
+        bw = metrics.block_weights(host, part, k)
+        perfect = -(-host.total_node_weight // k)
+        cap = max(int((1.0 + eps) * perfect), perfect + host.max_node_weight)
+        info = dict(phase="files_cli_terapart", graph=f"rmat_graph({SCHEME_SCALE}), compressed",
+                    bytes=os.path.getsize(compressed), rc=rc, wall_s=wall_c,
+                    launches=terapart_launches, max_block_weight=int(bw.max()), cap=cap,
+                    cut=metrics.edge_cut(host, part))
+        log(json.dumps(info))
+        if rc != 0 or terapart_launches["lp_rate_compressed"] <= 0:
+            raise AssertionError(f"the terapart CLI run did not launch kernel #2: {info}")
+        if part.shape != (host.n,) or int(bw.max()) > cap:
+            raise AssertionError("the terapart CLI run's partition is infeasible")
+    log(json.dumps(dict(phase="files_and_entry_points", s=time.perf_counter() - t_phase)))
+    return dict(cli_default=dict(launches=cli_launches),
+                cli_terapart=dict(launches=terapart_launches))
 
 
 def work_partition(graph, part, k: int):
@@ -2348,7 +2514,10 @@ def main() -> int:
     phase_off_vs_finest(small, args.scale - 4, OFF_FINEST_K, EPSILON)
     phase_round_reference(device)
     phase_scheme_round_reference(device)
-    info, coarsest = phase_main_path(small, K, EPSILON)
+    info, coarsest, default_part = phase_main_path(small, K, EPSILON)
+    torch.cuda.empty_cache()
+    cli_paths = phase_files_and_entry_points(small, default_part, info["cut"], K, EPSILON)
+    del default_part
     phase_pool(coarsest, device)
     torch.cuda.empty_cache()
     vinfo = phase_vcycle_path(small, K, EPSILON, info["cut"])
@@ -2373,7 +2542,7 @@ def main() -> int:
 
     paths = dict(terapart=tinfo, default=info, largek=linfo, min_weights=minfo, jet=jinfo,
                  clp=cinfo, strong=sinfo, kway=kinfo, linear_time_kway=ltinfo, vcycle=vinfo,
-                 **scheme_infos)
+                 **scheme_infos, **cli_paths)
     kernels = []
     for meas, source, replaces in (
             (rate, RATE_SOURCE, RATE_REPLACES),

@@ -264,6 +264,20 @@ class GraphCompressionContext:
 
 
 @dataclass
+class DebugContext:
+    """The hierarchy dumps of ``utils/debug.py`` (reference: the debug dump
+    options consumed by kaminpar-shm/partitioning/debug.cc); off by
+    default."""
+
+    save_hierarchy: bool = False
+    validate_graph: bool = False
+    graph_name: str = ""
+    dump_dir: str = "."
+    dump_graph_hierarchy: bool = False
+    dump_partition_hierarchy: bool = False
+
+
+@dataclass
 class Context:
     preset_name: str = "default"
     mode: PartitioningMode = PartitioningMode.DEEP
@@ -274,17 +288,21 @@ class Context:
     )
     refinement: RefinementContext = field(default_factory=RefinementContext)
     compression: GraphCompressionContext = field(default_factory=GraphCompressionContext)
+    debug: DebugContext = field(default_factory=DebugContext)
     seed: int = 0
     # v-cycle mode: the intermediate k values partitioned before the final k.
     vcycles: tuple = ()
     # v-cycle mode: revert refinement moves across the previous cycle's
     # blocks.
     restrict_vcycle_refinement: bool = False
+    # The JAX package's 64-bit ids and weights; the port's graphs stay
+    # int32, and the readers reject files beyond that range either way.
+    use_64bit_ids: bool = False
 
 
 __all__ = [
     "BalancerContext", "ClusterWeightLimit", "ClusteringAlgorithm",
-    "CoarseningContext", "ColoredLPContext", "Context", "FMContext",
+    "CoarseningContext", "ColoredLPContext", "Context", "DebugContext", "FMContext",
     "GraphCompressionContext", "InitialPartitioningContext", "JetContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
     "RefinementAlgorithm", "RefinementContext", "SparsificationContext",

@@ -35,7 +35,7 @@ from .utils import Logger, OutputLevel, RandomState, Timer, log_result_line, syn
 from .utils.assertions import HEAVY, LIGHT, kassert
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -59,7 +59,7 @@ class KaMinPar:
         if isinstance(ctx_or_preset, str):
             ctx_or_preset = create_context_by_preset_name(ctx_or_preset)
         self.ctx = ctx_or_preset
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.graph: Optional[CSRGraph] = None
         self.compressed_graph: Optional[CompressedGraph] = None
         self._last: Optional[PartitionedGraph] = None

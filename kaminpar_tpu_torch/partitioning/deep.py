@@ -49,7 +49,7 @@ from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import (HostCSR, extract_all_subgraphs, recursive_bipartition,
                                      resolve_ip_backend)
 from ..refinement.balancer import _balance_round, draw_balance_round
-from ..utils import RandomState, platform, sync_stats
+from ..utils import RandomState, debug as debug_dumps, platform, sync_stats
 from ..utils.logger import Logger, OutputLevel
 from ..utils.timer import ScopeClock, Timer, scoped_timer
 from .extension import extend_partition_device
@@ -393,6 +393,8 @@ class DeepMultilevelPartitioner:
                                              coarsener.current_communities)
                 if coarsener.num_levels == 0:
                     break
+                debug_dumps.dump_graph_hierarchy(graph, coarsener.num_levels, ctx)
+                debug_dumps.dump_partition_hierarchy(p_graph, coarsener.num_levels, ctx)
                 fine_part = coarsener.uncoarsen(p_graph.partition)
                 p_graph = self._refine(
                     coarsener.current_graph, fine_part, cur_k, coarsener.num_levels > 0
@@ -401,6 +403,7 @@ class DeepMultilevelPartitioner:
                                          coarsener.current_communities)
             # the finest level's decode on the device reads nothing back
             sync_stats.assert_phase_budget("compressed_decode", 0, since=sync_pre_cd)
+            debug_dumps.dump_partition_hierarchy(p_graph, 0, ctx)
         self.phase_seconds = clock.seconds()
         self.phase_seconds.update({
             "uncoarsening.extension.bisections": jobs["bisections_s"],

@@ -234,6 +234,10 @@ _PRESETS = {
 }
 
 
+def get_preset_names() -> list:
+    return sorted(_PRESETS)
+
+
 def create_context_by_preset_name(name: str) -> Context:
     try:
         ctx = _PRESETS[name]()

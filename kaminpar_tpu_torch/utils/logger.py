@@ -26,6 +26,11 @@ class Logger:
         if cls.level >= level:
             print(msg, file=sys.stdout, flush=True)
 
+    @classmethod
+    def warning(cls, msg: str) -> None:
+        if cls.level > OutputLevel.QUIET:
+            print(f"[Warning] {msg}", file=sys.stderr, flush=True)
+
 
 def log_result_line(cut: int, imbalance: float, feasible: bool, k: int,
                     seconds: float) -> str:

@@ -9,17 +9,24 @@ it also runs where only PyTorch is installed:
 All values are integers, so every comparison is exact.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import kaminpar_tpu_torch as kp
+from kaminpar_tpu_torch import io as kio
 from kaminpar_tpu_torch.graph import generators
 from kaminpar_tpu_torch.graph.compressed import compress
 from kaminpar_tpu_torch.graph.csr import from_edge_list
 from kaminpar_tpu_torch.graph.bucketed import Bucket
 from kaminpar_tpu_torch.graph.device_compressed import (CompressedBucket, CompressedStream,
                                                         DeviceCompressedView)
+from kaminpar_tpu_torch.io import native
 from kaminpar_tpu_torch.ops import lp, lp_kernels
 from kaminpar_tpu_torch.refinement import balancer
 
@@ -1019,3 +1026,37 @@ def test_guard_refuses_a_card_sync_outside_pull(cuda):
             sync_stats.pull(x)
     assert sync_stats.device_sync_count("coarsening") == 1
     sync_stats.reset()
+
+
+@pytest.mark.cuda
+def test_c_demo_partitions_on_the_card(cuda, tmp_path):
+    """The C library and demo built by the port's Makefile (into
+    ``build/capi/``) partition a grid on the card through the embedded
+    interpreter."""
+    root = Path(__file__).resolve().parent.parent
+    build = subprocess.run(["make", "-C", str(root / "kaminpar_tpu_torch" / "capi"), "demo",
+                            f"PYTHON={sys.executable}"],
+                           capture_output=True, text=True, timeout=300)
+    assert build.returncode == 0, build.stdout[-2000:] + build.stderr[-2000:]
+    env = dict(os.environ, PYTHONPATH=str(root), KPTPU_PYTHON=sys.executable)
+    run = subprocess.run([str(root / "build" / "capi" / "demo")], capture_output=True,
+                         text=True, env=env, timeout=600, cwd=tmp_path)
+    assert run.returncode == 0, (run.stdout[-1000:], run.stderr[-3000:])
+    assert "CAPI_OK cut=" in run.stdout
+    cut = int(run.stdout.split("cut=")[1].split()[0])
+    assert 40 <= cut <= 120, cut  # a 24x24 grid into quarters: 48 at best
+
+
+@pytest.mark.cuda
+def test_native_parser_equals_numpy_parser_at_scale_16(cuda, tmp_path, monkeypatch):
+    """The native METIS parser and the NumPy parser read the same scale-16
+    RMAT file, written by the port, into equal arrays."""
+    g = generators.rmat_graph(16, 16, seed=1)
+    path = str(tmp_path / "g.metis")
+    kio.write_graph(g, path)
+    by_native = kio.read_metis(path)
+    monkeypatch.setenv(native.NO_NATIVE_ENV, "1")
+    by_numpy = kio.read_metis(path)
+    for name in ("row_ptr", "col_idx", "node_w", "edge_w"):
+        assert torch.equal(getattr(by_native, name), getattr(by_numpy, name)), name
+        assert torch.equal(getattr(by_native, name), getattr(g, name)), name

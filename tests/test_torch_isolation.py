@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``kaminpar_tpu_torch`` nor
-``chip_smoke.py`` imports jax or the JAX package, and the package
+``chip_smoke.py`` imports jax or the JAX package, none of its C, C++ and
+CUDA sources (and build files) names a JAX-package module, and the package
 partitions a graph while ``jax`` cannot be imported at all."""
 
 import ast
@@ -10,6 +11,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kaminpar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+NATIVE_PATTERNS = ("*.cc", "*.cpp", "*.c", "*.h", "*.cu", "*.cuh", "Makefile")
+NATIVE_FILES = sorted(path for pattern in NATIVE_PATTERNS
+                      for path in (ROOT / "kaminpar_tpu_torch").rglob(pattern))
 
 
 def _imported_modules(path: Path):
@@ -36,6 +40,20 @@ def test_no_jax_or_jax_package_imports():
             if needle in text:
                 bad.append(f"{path.relative_to(ROOT)}: text {needle!r}")
     assert not bad, bad
+
+
+def test_native_sources_name_no_jax_package_module():
+    """The C, C++ and CUDA sources and the Makefile carry the same text
+    needle as the Python files; the embedded C shim imports the port's
+    bridge."""
+    names = {path.name for path in NATIVE_FILES}
+    assert {"lp_rate.cu", "lp_commit.cu", "warp_sort.cuh", "metis_native.cpp",
+            "kaminpar_tpu_c.cc", "kaminpar_tpu_torch.h", "demo.c", "Makefile"} <= names
+    bad = [str(path.relative_to(ROOT)) for path in NATIVE_FILES
+           if "kaminpar_tpu." in path.read_text()]
+    assert not bad, bad
+    shim = (ROOT / "kaminpar_tpu_torch" / "capi" / "kaminpar_tpu_c.cc").read_text()
+    assert 'PyImport_ImportModule("kaminpar_tpu_torch.capi_bridge")' in shim
 
 
 def test_partitions_with_jax_unimportable():
