@@ -101,8 +101,10 @@ which fails the run when it fails:
    file, and no peak tracker or capture wrapper (their own readbacks would
    count): the coarsening's pulls equal its contractions, no card sync
    outside a pull in coarsening, the initial partitioning's pulls at most
-   its k0 (asserted in ``partitioning/deep.py``), a valid trace and device
-   bytes in the heap report;
+   its k0 (asserted in ``partitioning/deep.py``), a valid trace with the
+   quality probes' rows (the trace arms them) and device bytes in the heap
+   report; no phase's synchronizing calls outside a pull above the
+   figures of the run before the probes (``SYNCS_BEFORE_PROBES``);
 6d. round reference, on a small graph: one whole LP round, one balancer
    round, one underload round, one group-restricted balancer round, one
    JET move round, one colouring and one colored LP iteration on the card
@@ -168,6 +170,21 @@ which fails the run when it fails:
     by ``cli.main([..., "-P", "terapart"])`` in this process, counters set
     to 0 just before and read just after: kernel #2 launched, the partition
     feasible.  Both CLI runs join ``launches_by_path``.
+15. preemption, right after 14, on its ParHIP file of the default path's
+    graph: ``python -m kaminpar_tpu_torch <file> k -P default -o ...`` in a
+    subprocess with checkpoints armed at every boundary
+    (``KPTPU_CHECKPOINT`` under ``build/``), a fault plan that sends it
+    SIGTERM at the first uncoarsening boundary and the flight recorder
+    beating every 0.5 s: it must die by SIGTERM, leave a checkpoint of
+    that boundary and a dossier whose last phase is the deep pipeline's.
+    Then ``KaMinPar("default").compute_partition(k, resume=dir)`` in this
+    process, counters set to 0 just before and read just after, must give
+    phase 7's partition bit for bit, launch kernels #1 and #3 (the
+    ``resume`` path of ``launches_by_path``) and make no pull and no card
+    sync outside a pull in ``checkpoint_restore``.  It prints each
+    boundary's write seconds and bytes (the child's checkpoint log lines),
+    the restore and resume seconds, and the writer's pulls against its
+    entitlement.
 
 The rating kernels are also timed bucket by bucket: one JSON line per
 bucket with its width, rows, real rows, time and bound, beside the
@@ -195,6 +212,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -254,6 +272,17 @@ VCYCLE_CUT_BOUND = 1.25
 HEM_CONVERGENCE = 0.01
 # The timer tree in every path's line: three scopes deep.
 TIMER_DEPTH = 2
+# The sync budget run's synchronizing calls outside a pull per phase before
+# the quality probes joined the main path (H100 80GB HBM3, 700 W; every
+# phase not named had none): with the trace arming the probes, no phase may
+# have more.
+SYNCS_BEFORE_PROBES = dict(extend_partition=75, lp_clustering=59, partitioning=56,
+                           initial_partitioning=15, untracked=5)
+# The preemption phase: the flight recorder's heartbeat period, and the
+# boundary the fault plan kills the CLI at (the first uncoarsening one, so
+# that the resume restores the level stack and a partition).
+HEARTBEAT_S = 0.5
+PREEMPT_PLAN = "preempt@deep_uncoarsen:execute-fault"
 
 
 def log(msg: str) -> None:
@@ -1567,7 +1596,7 @@ def parse_rate(read, path: str, graph, what: str) -> dict:
 
 
 def phase_files_and_entry_points(default_graph, default_part, default_cut: int, k: int,
-                                 eps: float) -> dict:
+                                 eps: float, tmp: str) -> dict:
     """Phase 14: graph files and the entry points users run, on the card.
     (a) ``rmat_graph(SCHEME_SCALE)`` (the host build) written as METIS and
     read back by the native and the NumPy parser, each equal to the graph,
@@ -1578,9 +1607,8 @@ def phase_files_and_entry_points(default_graph, default_part, default_cut: int, 
     graph's compressed container partitioned by ``cli.main`` under
     ``-P terapart`` in this process, with the launch counters set to 0 just
     before and read just after: kernel #2 launched, the partition feasible.
-    Returns the launch counts of (b) and (c) as two paths."""
-    import tempfile
-
+    Its files go into ``tmp`` (the ParHIP file is ``g.parhip`` there, for
+    phase 15).  Returns the launch counts of (b) and (c) as two paths."""
     import numpy as np
 
     from kaminpar_tpu_torch import cli, io as kio
@@ -1592,97 +1620,190 @@ def phase_files_and_entry_points(default_graph, default_part, default_cut: int, 
 
     root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        # (a) METIS through both parsers
-        host = generators.rmat_graph(SCHEME_SCALE, 16, seed=1)
-        metis = os.path.join(tmp, "g.metis")
-        t0 = time.perf_counter()
-        kio.write_graph(host, metis)
-        write_s = time.perf_counter() - t0
-        level = Logger.level
-        Logger.level = OutputLevel.QUIET
+    # (a) METIS through both parsers
+    host = generators.rmat_graph(SCHEME_SCALE, 16, seed=1)
+    metis = os.path.join(tmp, "g.metis")
+    t0 = time.perf_counter()
+    kio.write_graph(host, metis)
+    write_s = time.perf_counter() - t0
+    level = Logger.level
+    Logger.level = OutputLevel.QUIET
+    try:
+        rates = dict(native=parse_rate(kio.read_metis, metis, host, "native"))
+        os.environ[native.NO_NATIVE_ENV] = "1"
         try:
-            rates = dict(native=parse_rate(kio.read_metis, metis, host, "native"))
-            os.environ[native.NO_NATIVE_ENV] = "1"
-            try:
-                rates["numpy"] = parse_rate(kio.read_metis, metis, host, "NumPy")
-            finally:
-                del os.environ[native.NO_NATIVE_ENV]
+            rates["numpy"] = parse_rate(kio.read_metis, metis, host, "NumPy")
         finally:
-            Logger.level = level
-        log(json.dumps(dict(phase="files_metis", graph=f"rmat_graph({SCHEME_SCALE}, 16, seed=1)",
-                            n=host.n, m=host.m, bytes=os.path.getsize(metis), write_s=write_s,
-                            parsers=rates)))
+            del os.environ[native.NO_NATIVE_ENV]
+    finally:
+        Logger.level = level
+    log(json.dumps(dict(phase="files_metis", graph=f"rmat_graph({SCHEME_SCALE}, 16, seed=1)",
+                        n=host.n, m=host.m, bytes=os.path.getsize(metis), write_s=write_s,
+                        parsers=rates)))
 
-        # (b) the CLI in a subprocess on the default path's graph as ParHIP
-        parhip, part_file, sizes_file, trace_file, launches_file = (
-            os.path.join(tmp, name) for name in
-            ("g.parhip", "g.part", "g.sizes", "g.trace.json", "launches.json"))
-        kio.write_graph(default_graph, parhip)
-        hook_dir = os.path.join(tmp, "hook")
-        os.makedirs(hook_dir)
-        with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
-            f.write(LAUNCH_HOOK)
-        env = dict(os.environ, CHIP_SMOKE_LAUNCHES=launches_file,
-                   PYTHONPATH=os.pathsep.join([hook_dir, root]))
-        cmd = [sys.executable, "-m", "kaminpar_tpu_torch", parhip, str(k), "-P", "default",
-               "-o", part_file, "--block-sizes", sizes_file, "-E", "--trace-out", trace_file]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        result = re.search(r"RESULT cut=(\d+) .*time=([0-9.e+-]+)", res.stdout)
-        info = dict(phase="files_cli", graph="the default path's graph, ParHIP",
-                    bytes=os.path.getsize(parhip), rc=res.returncode, wall_s=wall,
-                    partition_s=float(result.group(2)) if result else None,
-                    cut=int(result.group(1)) if result else None, phase7_cut=default_cut)
-        if res.returncode != 0:
-            log(json.dumps(info))
-            raise AssertionError(f"the CLI failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-        part = kio.read_partition(part_file)
-        with open(launches_file) as f:
-            cli_launches = json.load(f)
-        with open(trace_file) as f:
-            info["trace"] = validate_chrome_trace(json.load(f))
-        sizes = np.loadtxt(sizes_file, dtype=np.int64)
-        info.update(launches=cli_launches, equal_to_phase7=bool(np.array_equal(part, default_part)),
-                    sizes_equal=bool(np.array_equal(
-                        sizes, metrics.block_weights(default_graph, part, k))))
+    # (b) the CLI in a subprocess on the default path's graph as ParHIP
+    parhip, part_file, sizes_file, trace_file, launches_file = (
+        os.path.join(tmp, name) for name in
+        ("g.parhip", "g.part", "g.sizes", "g.trace.json", "launches.json"))
+    kio.write_graph(default_graph, parhip)
+    hook_dir = os.path.join(tmp, "hook")
+    os.makedirs(hook_dir)
+    with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK)
+    env = dict(os.environ, CHIP_SMOKE_LAUNCHES=launches_file,
+               PYTHONPATH=os.pathsep.join([hook_dir, root]))
+    cmd = [sys.executable, "-m", "kaminpar_tpu_torch", parhip, str(k), "-P", "default",
+           "-o", part_file, "--block-sizes", sizes_file, "-E", "--trace-out", trace_file]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    result = re.search(r"RESULT cut=(\d+) .*time=([0-9.e+-]+)", res.stdout)
+    info = dict(phase="files_cli", graph="the default path's graph, ParHIP",
+                bytes=os.path.getsize(parhip), rc=res.returncode, wall_s=wall,
+                partition_s=float(result.group(2)) if result else None,
+                cut=int(result.group(1)) if result else None, phase7_cut=default_cut)
+    if res.returncode != 0:
         log(json.dumps(info))
-        if not info["equal_to_phase7"] or info["cut"] != default_cut:
-            raise AssertionError("the CLI's partition of the file differs from phase 7's")
-        if not info["sizes_equal"]:
-            raise AssertionError("the CLI's block sizes are not its partition's")
+        raise AssertionError(f"the CLI failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    part = kio.read_partition(part_file)
+    with open(launches_file) as f:
+        cli_launches = json.load(f)
+    with open(trace_file) as f:
+        info["trace"] = validate_chrome_trace(json.load(f))
+    sizes = np.loadtxt(sizes_file, dtype=np.int64)
+    info.update(launches=cli_launches, equal_to_phase7=bool(np.array_equal(part, default_part)),
+                sizes_equal=bool(np.array_equal(
+                    sizes, metrics.block_weights(default_graph, part, k))))
+    log(json.dumps(info))
+    if not info["equal_to_phase7"] or info["cut"] != default_cut:
+        raise AssertionError("the CLI's partition of the file differs from phase 7's")
+    if not info["sizes_equal"]:
+        raise AssertionError("the CLI's block sizes are not its partition's")
 
-        # (c) the compressed container under -P terapart, in this process
-        compressed, part_c = os.path.join(tmp, "g.compressed"), os.path.join(tmp, "c.part")
-        kio.write_graph(host, compressed)
-        lp_kernels.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            rc = cli.main([compressed, str(k), "-P", "terapart", "-o", part_c, "-q"])
-        finally:
-            Logger.level = level
-        import torch
+    # (c) the compressed container under -P terapart, in this process
+    compressed, part_c = os.path.join(tmp, "g.compressed"), os.path.join(tmp, "c.part")
+    kio.write_graph(host, compressed)
+    lp_kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([compressed, str(k), "-P", "terapart", "-o", part_c, "-q"])
+    finally:
+        Logger.level = level
+    import torch
 
-        torch.cuda.synchronize()
-        wall_c = time.perf_counter() - t0
-        terapart_launches = dict(lp_kernels.LAUNCHES)
-        part = kio.read_partition(part_c)
-        bw = metrics.block_weights(host, part, k)
-        perfect = -(-host.total_node_weight // k)
-        cap = max(int((1.0 + eps) * perfect), perfect + host.max_node_weight)
-        info = dict(phase="files_cli_terapart", graph=f"rmat_graph({SCHEME_SCALE}), compressed",
-                    bytes=os.path.getsize(compressed), rc=rc, wall_s=wall_c,
-                    launches=terapart_launches, max_block_weight=int(bw.max()), cap=cap,
-                    cut=metrics.edge_cut(host, part))
-        log(json.dumps(info))
-        if rc != 0 or terapart_launches["lp_rate_compressed"] <= 0:
-            raise AssertionError(f"the terapart CLI run did not launch kernel #2: {info}")
-        if part.shape != (host.n,) or int(bw.max()) > cap:
-            raise AssertionError("the terapart CLI run's partition is infeasible")
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    terapart_launches = dict(lp_kernels.LAUNCHES)
+    part = kio.read_partition(part_c)
+    bw = metrics.block_weights(host, part, k)
+    perfect = -(-host.total_node_weight // k)
+    cap = max(int((1.0 + eps) * perfect), perfect + host.max_node_weight)
+    info = dict(phase="files_cli_terapart", graph=f"rmat_graph({SCHEME_SCALE}), compressed",
+                bytes=os.path.getsize(compressed), rc=rc, wall_s=wall_c,
+                launches=terapart_launches, max_block_weight=int(bw.max()), cap=cap,
+                cut=metrics.edge_cut(host, part))
+    log(json.dumps(info))
+    if rc != 0 or terapart_launches["lp_rate_compressed"] <= 0:
+        raise AssertionError(f"the terapart CLI run did not launch kernel #2: {info}")
+    if part.shape != (host.n,) or int(bw.max()) > cap:
+        raise AssertionError("the terapart CLI run's partition is infeasible")
     log(json.dumps(dict(phase="files_and_entry_points", s=time.perf_counter() - t_phase)))
     return dict(cli_default=dict(launches=cli_launches),
                 cli_terapart=dict(launches=terapart_launches))
+
+
+CHECKPOINT_LINE = re.compile(
+    r"checkpoint: boundary (\d+) \((\w+), (\d+) levels\) written in ([0-9.]+) s, (\d+) B")
+
+
+def phase_preemption(default_graph, default_part, k: int, eps: float, tmp: str) -> dict:
+    """Phase 15: a default run of the CLI on phase 14's ParHIP file (in
+    ``tmp``) killed by SIGTERM at its first uncoarsening boundary, with
+    checkpoints at every boundary and the flight recorder on, then resumed
+    in this process on the card: phase 7's partition bit for bit, kernels
+    #1 and #3 launched, no pull and no card sync outside a pull in the
+    restore.  Returns the resume's launch counts as a path."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.resilience import checkpoint
+    from kaminpar_tpu_torch.telemetry import flight_recorder, phases
+    from kaminpar_tpu_torch.utils import sync_stats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    ckpt_dir, hb = os.path.join(tmp, "ckpt"), os.path.join(tmp, "heartbeat.jsonl")
+    env = dict(os.environ, PYTHONPATH=root, KPTPU_CHECKPOINT=ckpt_dir,
+               KPTPU_CHECKPOINT_EVERY="1", KPTPU_FAULTS=PREEMPT_PLAN,
+               KPTPU_FLIGHT_RECORDER=hb, KPTPU_HEARTBEAT_S=str(HEARTBEAT_S))
+    cmd = [sys.executable, "-m", "kaminpar_tpu_torch", os.path.join(tmp, "g.parhip"), str(k),
+           "-P", "default", "-o", os.path.join(tmp, "killed.part")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    killed_s = time.perf_counter() - t0
+    writes = [dict(boundary=int(b), stage=stage, levels=int(levels), s=float(sec),
+                   bytes=int(nbytes))
+              for b, stage, levels, sec, nbytes in CHECKPOINT_LINE.findall(res.stdout)]
+    dossier = flight_recorder.read_dossier(hb) or {}
+    latest = checkpoint.latest(ckpt_dir)
+    info = dict(phase="preemption", graph="the default path's graph, ParHIP", plan=PREEMPT_PLAN,
+                rc=res.returncode, killed_wall_s=killed_s, writes=writes,
+                files=sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else [],
+                dossier=dict(phase=dossier.get("phase"), phase_class=dossier.get("phase_class"),
+                             heartbeats=dossier.get("heartbeats"),
+                             last_heartbeat=dossier.get("last_heartbeat")))
+    if res.returncode != -signal.SIGTERM or latest is None:
+        log(json.dumps(info))
+        raise AssertionError(f"the CLI did not die by SIGTERM with a checkpoint on disk:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    state = checkpoint.load(latest)
+    if state.stage != "uncoarsening" or not writes or writes[-1]["stage"] != "uncoarsening":
+        raise AssertionError(f"the kill did not land at the first uncoarsening boundary: {info}")
+    if dossier.get("phase") not in phases.CORE_PHASES + ("checkpoint_write",):
+        raise AssertionError(f"the dossier names no pipeline phase: {info['dossier']}")
+
+    solver = kp.KaMinPar("default")  # no device: cuda:0
+    solver.set_graph(default_graph)
+    lp_kernels.reset_launches()
+    sync_stats.reset()
+    sync_stats.enable_budget_checks(True)
+    try:
+        with sync_stats.count_device_syncs():
+            t0 = time.perf_counter()
+            part = solver.compute_partition(k, epsilon=eps, resume=ckpt_dir)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+    finally:
+        sync_stats.enable_budget_checks(False)
+    launches = dict(lp_kernels.LAUNCHES)
+    snap = sync_stats.snapshot()
+    restore_pulls = snap["phases"].get("checkpoint_restore", {}).get("count", 0)
+    restore_syncs = snap["device_syncs"].get("checkpoint_restore", 0)
+    census = state.meta["census"]
+    info.update(
+        boundary=state.boundary, stage=state.stage, restored_levels=len(state.levels),
+        cur_k=state.cur_k, checkpoint_bytes=os.path.getsize(latest),
+        write_pulls=census["checkpoint_write_pulls"],
+        write_pulls_entitled=census["checkpoint_write_entitled"],
+        restore_s=solver.last_partitioner.restore_s, resume_s=resume_s,
+        restore_pulls=restore_pulls, restore_device_syncs=restore_syncs, launches=launches,
+        equal_to_phase7=bool(np.array_equal(part, default_part)),
+        s=time.perf_counter() - t_phase)
+    log(json.dumps(info))
+    if not info["equal_to_phase7"]:
+        raise AssertionError("the resumed partition differs from phase 7's")
+    if launches["lp_rate"] <= 0 or launches["lp_commit"] <= 0:
+        raise AssertionError(f"the resume did not launch kernels #1 and #3: {launches}")
+    if info["write_pulls"] != info["write_pulls_entitled"]:
+        raise AssertionError("the killed run's checkpoint pulls differ from its entitlement")
+    if restore_pulls or restore_syncs:
+        raise AssertionError(f"checkpoint_restore made {restore_pulls} pulls and "
+                             f"{restore_syncs} card syncs outside pull")
+    return dict(resume=dict(launches=launches))
 
 
 def work_partition(graph, part, k: int):
@@ -2152,7 +2273,9 @@ def phase_sync_budget(graph, scale: int, k: int, eps: float) -> dict:
                 implicit={ph: row["implicit"] for ph, row in phases.items()
                           if row["implicit"]},
                 device_syncs=syncs, other_warnings=len(other_warnings),
-                trace={key: trace[key] for key in ("events", "spans", "counters")},
+                trace={key: trace[key] for key in ("events", "spans", "counters",
+                                                   "quality_rows")},
+                syncs_before_probes=SYNCS_BEFORE_PROBES,
                 heap=memory, heap_report_lines=len(report.splitlines()), **acc)
     log(json.dumps(info))
     if not info["feasible"]:
@@ -2168,6 +2291,12 @@ def phase_sync_budget(graph, scale: int, k: int, eps: float) -> dict:
     if not trace["spans"] or memory.get("peak_bytes_in_use", 0) <= 0 \
             or "entry=0 exit=0" in report.splitlines()[1]:
         raise AssertionError("no spans in the trace or no device bytes in the heap report")
+    if not trace["quality_rows"]:
+        raise AssertionError("the traced run wrote no quality rows")
+    risen = {ph: n for ph, n in syncs.items() if n > SYNCS_BEFORE_PROBES.get(ph, 0)}
+    if risen:
+        raise AssertionError(f"card syncs outside pull rose with the probes armed: {risen} "
+                             f"(before: {SYNCS_BEFORE_PROBES})")
     return info
 
 
@@ -2516,7 +2645,13 @@ def main() -> int:
     phase_scheme_round_reference(device)
     info, coarsest, default_part = phase_main_path(small, K, EPSILON)
     torch.cuda.empty_cache()
-    cli_paths = phase_files_and_entry_points(small, default_part, info["cut"], K, EPSILON)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as files_dir:
+        cli_paths = phase_files_and_entry_points(small, default_part, info["cut"], K, EPSILON,
+                                                 files_dir)
+        torch.cuda.empty_cache()
+        cli_paths.update(phase_preemption(small, default_part, K, EPSILON, files_dir))
     del default_part
     phase_pool(coarsest, device)
     torch.cuda.empty_cache()

@@ -84,6 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # A parent that may kill this process names a heartbeat file in
+    # KPTPU_FLIGHT_RECORDER: its last line says which phase the run died in.
+    from .telemetry import flight_recorder
+
+    flight_recorder.arm_from_env()
     parser = build_parser()
     args = parser.parse_args(argv)
 
@@ -182,7 +187,7 @@ def main(argv=None) -> int:
                 Logger.log(
                     f"Telemetry trace written to {args.trace_out} "
                     f"({summ['spans']} spans, {summ['counter_samples']} counter "
-                    f"samples)"
+                    f"samples, {summ['quality_rows']} quality rows)"
                 )
             except OSError as exc:
                 # A failed trace write must neither void a finished

@@ -32,6 +32,7 @@ from ..graph.csr import CSRGraph
 from ..graph.device_compressed import DeviceCompressedView
 from ..ops.contraction import contract_clustering, contract_compressed, project_partition
 from ..ops.segment import segment_max
+from ..telemetry import probes
 from ..utils.logger import Logger, OutputLevel
 from ..utils.timer import scoped_timer
 from .hem_clusterer import HEMClustering
@@ -175,19 +176,31 @@ class ClusterCoarsener:
             max_cw = min(max_cw, max(int(sf * avg_w), 1))
         comm = self.current_communities
         with scoped_timer("coarsening"):
-            if comm is None:
-                labels = self.clusterer.compute_clustering(src, max_cw)
-            else:
-                labels = self._masked_clusterer.compute_clustering(
-                    src.community_masked(comm), max_cw)
+            clusterer = self.clusterer if comm is None else self._masked_clusterer
+            labels = clusterer.compute_clustering(
+                src if comm is None else src.community_masked(comm), max_cw)
             contract = contract_compressed if off_stream else contract_clustering
             self.contractions += 1
-            coarse, coarse_of = contract(src, labels)
+            # The clusterer's moved count rides the contraction's one
+            # readback, for the level's quality row.
+            lp_moved = getattr(clusterer, "last_num_moved", None)
+            if lp_moved is not None:
+                coarse, coarse_of, (lp_moved,) = contract(src, labels, (lp_moved,))
+            else:
+                coarse, coarse_of = contract(src, labels)
             # Clusters never span communities: any member's community is
             # the cluster's.
             coarse_comm = None if comm is None else segment_max(comm, coarse_of, coarse.n)
         coarse_m = coarse.m
         coarse = self._sparsify(coarse, n_cur, m_cur)
+        # The level's quality row: host values of the contraction's readback
+        # only (a sparsified level has no cached total edge weight).
+        probes.coarsening_level(
+            level=len(self.hierarchy), n=n_cur, m=m_cur, n_c=coarse.n, m_c=coarse.m,
+            max_cluster_weight=max_cw, max_node_weight=coarse._max_node_weight,
+            total_edge_weight=coarse._total_edge_weight, lp_moved=lp_moved,
+            lp_rounds_budget=getattr(getattr(clusterer, "ctx", None), "num_iterations", None),
+        )
         Logger.log(
             f"  coarsening level {len(self.hierarchy)}: n={n_cur} -> {coarse.n}, "
             f"m={m_cur} -> {coarse.m} (max_cw={max_cw})",
@@ -218,11 +231,16 @@ class ClusterCoarsener:
             return sparsify_threshold(coarse, target_m)
         return coarse
 
-    def coarsen(self, k: int, epsilon: float, target_n: int) -> CSRGraph:
-        """Coarsen until n <= target_n or convergence."""
+    def coarsen(self, k: int, epsilon: float, target_n: int, on_level=None) -> CSRGraph:
+        """Coarsen until n <= target_n or convergence.  ``on_level(self)``
+        runs after each pushed level (the deep scheme's checkpoint
+        boundary); a hierarchy restored from a checkpoint goes on from
+        ``current_n``."""
         while self.current_n > target_n:
             if not self.coarsen_once(k, epsilon):
                 break
+            if on_level is not None:
+                on_level(self)
         return self.current_graph
 
     def uncoarsen(self, partition: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from ..context import LabelPropagationContext
 from ..graph.device_compressed import DeviceCompressedView
 from ..ops import lp
 from ..ops.segment import run_ids, run_starts2, segment_min
+from ..resilience.faults import maybe_inject
 from ..utils import RandomState
 from ..utils.timer import scoped_timer
 
@@ -48,6 +49,7 @@ class LPClustering:
         # Decided once from the coarsener's input graph, so the mode cannot
         # flip as contraction accumulates edge weights.
         self.weighted_graph = weighted_graph
+        self.last_num_moved = None
 
     def compute_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
         """Padded (n_pad,) cluster labels; pad nodes carry the anchor label
@@ -88,6 +90,10 @@ class LPClustering:
             # sparse graphs propagate one hop per sweep: sweep longer
             iters *= max(self.ctx.low_degree_boost_factor, 1)
         gen = RandomState.generator(dev)
+        # The "execute" fault-injection point of the LP kernels' dispatch,
+        # under the JAX package's site string.  An injected fault stops the
+        # run: the port has no plain-version fallback to demote to.
+        maybe_inject("execute", site="lp_pallas")
         state = lp.lp_iterate_bucketed(
             state,
             lambda _: lp.draw_lp_round(gen, layout, n_pad, active_prob=active_prob),
@@ -103,4 +109,7 @@ class LPClustering:
             state = lp.cluster_two_hop_nodes_bucketed(
                 state, lp.draw_two_hop(gen, layout, n_pad), layout, node_w, max_w,
                 num_labels=n_pad)
+        # the last round's moved count, a device scalar the coarsener packs
+        # into the contraction's readback for its quality row
+        self.last_num_moved = state.num_moved
         return state.labels

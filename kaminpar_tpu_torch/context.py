@@ -278,6 +278,24 @@ class DebugContext:
 
 
 @dataclass
+class ResilienceContext:
+    """Checkpoint knobs of the resilience layer (``resilience/``), the JAX
+    package's names and defaults (disarmed).  Its fault-plan, breaker and
+    watchdog fields come with the serve engine, which reads them."""
+
+    # Directory of the deep pipeline's level-boundary checkpoints
+    # (resilience/checkpoint.py; "" = disarmed, KPTPU_CHECKPOINT arms every
+    # process).  KaMinPar.compute_partition(resume=...) continues from one
+    # bit for bit.
+    checkpoint_dir: str = ""
+    # Write a checkpoint every N level boundaries (>= 1;
+    # KPTPU_CHECKPOINT_EVERY overrides).
+    checkpoint_every_levels: int = 1
+    # Keep every boundary's file instead of the latest only.
+    checkpoint_keep_all: bool = False
+
+
+@dataclass
 class Context:
     preset_name: str = "default"
     mode: PartitioningMode = PartitioningMode.DEEP
@@ -289,6 +307,7 @@ class Context:
     refinement: RefinementContext = field(default_factory=RefinementContext)
     compression: GraphCompressionContext = field(default_factory=GraphCompressionContext)
     debug: DebugContext = field(default_factory=DebugContext)
+    resilience: ResilienceContext = field(default_factory=ResilienceContext)
     seed: int = 0
     # v-cycle mode: the intermediate k values partitioned before the final k.
     vcycles: tuple = ()
@@ -305,6 +324,6 @@ __all__ = [
     "CoarseningContext", "ColoredLPContext", "Context", "DebugContext", "FMContext",
     "GraphCompressionContext", "InitialPartitioningContext", "JetContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
-    "RefinementAlgorithm", "RefinementContext", "SparsificationContext",
+    "RefinementAlgorithm", "RefinementContext", "ResilienceContext", "SparsificationContext",
     "TieBreakingStrategy",
 ]

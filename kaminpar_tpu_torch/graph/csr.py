@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..resilience.errors import GraphValidationError
+from ..resilience.faults import maybe_inject
 from ..utils import sync_stats
 from ..utils.intmath import next_shape_bucket
 
@@ -98,6 +100,8 @@ class CSRGraph:
         self._bucketed = None
         self._total_node_weight: Optional[int] = None
         self._max_node_weight: Optional[int] = None
+        # set by the contraction's readback (ops/contraction.py)
+        self._total_edge_weight: Optional[int] = None
         # The DeviceCompressedView a finest graph was decoded from (its LP
         # refinement pass rates off the compressed stream), else None.
         self._compressed_view = None
@@ -114,6 +118,7 @@ class CSRGraph:
         g._bucketed = None
         g._total_node_weight = self._total_node_weight
         g._max_node_weight = self._max_node_weight
+        g._total_edge_weight = self._total_edge_weight
         g._compressed_view = None
         return g
 
@@ -129,6 +134,7 @@ class CSRGraph:
         g.__dict__.update(self.__dict__)
         keep = comm[self.edge_u] == comm[self.col_idx]
         g.edge_w = torch.where(keep, self.edge_w, torch.zeros((), dtype=IDX, device=self.device))
+        g._total_edge_weight = None  # the masked edges no longer count
         g._padded = None
         g._bucketed = mask_bucketed_view(self.bucketed(), comm, self.padded().n_pad)
         g._compressed_view = None
@@ -148,6 +154,10 @@ class CSRGraph:
 
             def full(size, value):
                 return torch.full((size,), value, dtype=IDX, device=dev)
+
+            # A fresh shape bucket: the "compile" fault-injection point,
+            # under the JAX package's site string.
+            maybe_inject("compile", site=f"padded_bucket:{n_pad}x{m_pad}")
 
             self._padded = PaddedView(
                 torch.cat([self.row_ptr, full(n_fill - 1, self.m), full(1, m_pad)]),
@@ -185,7 +195,9 @@ class CSRGraph:
 
     @property
     def total_edge_weight(self) -> int:
-        return int(sync_stats.pull(self.edge_w.sum(dtype=torch.int64)))
+        if self._total_edge_weight is None:
+            self._total_edge_weight = int(sync_stats.pull(self.edge_w.sum(dtype=torch.int64)))
+        return self._total_edge_weight
 
     def has_uniform_edge_weights(self) -> bool:
         if self.m == 0:
@@ -212,32 +224,71 @@ def _compute_edge_u(row_ptr: torch.Tensor, host_row_ptr, m: int) -> torch.Tensor
 
 
 def validate_csr_input(row_ptr, col_idx, node_w=None, edge_w=None) -> None:
-    """Reject malformed CSR input with a ``ValueError`` (structural
-    checks only, O(n + m) numpy)."""
+    """The facade's input guard: reject malformed CSR input with a
+    :class:`~..resilience.errors.GraphValidationError` (a ``ValueError``,
+    ``site="csr_ingest"``) under the JAX package's messages, before a
+    non-monotone row_ptr or an out-of-range column turns into garbage in
+    a kernel.  O(n + m) numpy, structural checks only.  The port's
+    tensors are int32, so sizes and weight totals are held to the int32
+    range under the port's own messages (the JAX package's name its
+    ``use_64bit_ids`` build, which the port does not have)."""
+
+    def _reject(msg: str):
+        raise GraphValidationError(f"rejected graph input: {msg}", site="csr_ingest")
+
     rp = np.asarray(row_ptr)
     col = np.asarray(col_idx)
     if rp.ndim != 1 or rp.size < 1:
-        raise ValueError(f"row_ptr must be 1-D with n+1 entries, got {rp.shape}")
+        _reject(f"row_ptr must be 1-D with n+1 entries, got shape {rp.shape}")
     if col.ndim != 1:
-        raise ValueError(f"col_idx must be 1-D, got {col.shape}")
+        _reject(f"col_idx must be 1-D, got shape {col.shape}")
+    if not np.issubdtype(rp.dtype, np.integer) or not np.issubdtype(col.dtype, np.integer):
+        _reject(f"row_ptr/col_idx must be integer arrays, got {rp.dtype}/{col.dtype}")
     n, m = rp.size - 1, col.size
-    if rp[0] != 0 or int(rp[-1]) != m:
-        raise ValueError("row_ptr must start at 0 and end at len(col_idx)")
-    if n > 0 and np.any(np.diff(rp.astype(np.int64)) < 0):
-        raise ValueError("row_ptr is non-monotone")
-    if m > 0 and (int(col.min()) < 0 or int(col.max()) >= n):
-        raise ValueError(f"col_idx out of range for n={n}")
-    limit = np.iinfo(np.int32).max
-    if n > limit or m > limit:
-        raise ValueError("graph exceeds the int32 index space")
+    if rp[0] != 0:
+        _reject(f"row_ptr[0] must be 0, got {int(rp[0])}")
+    if int(rp[-1]) != m:
+        _reject(f"row_ptr[-1] ({int(rp[-1])}) must equal len(col_idx) ({m})")
+    # a signed diff: on an unsigned row_ptr a descending step would wrap
+    drp = np.diff(rp.astype(np.int64))
+    if n > 0 and np.any(drp < 0):
+        bad = int(np.argmax(drp < 0))
+        _reject(f"row_ptr is non-monotone at node {bad} "
+                f"({int(rp[bad])} -> {int(rp[bad + 1])})")
+    if m > 0:
+        cmin, cmax = int(col.min()), int(col.max())
+        if cmin < 0 or cmax >= n:
+            _reject(f"col_idx out of range: [{cmin}, {cmax}] vs n={n}")
+    id_max = np.iinfo(np.int32).max
+    if m > id_max or n > id_max:
+        _reject(f"n={n}/m={m} exceed the port's int32 index space")
     for name, w, count in (("node", node_w, n), ("edge", edge_w, m)):
         if w is None:
             continue
         w = np.asarray(w)
         if w.shape != (count,):
-            raise ValueError(f"{name}_weights must have shape ({count},)")
-        if w.size and (int(w.min()) < 0 or int(w.astype(np.int64).sum()) > limit):
-            raise ValueError(f"{name} weights must be >= 0 with an int32 total")
+            _reject(f"{name}_weights must have shape ({count},), got {w.shape}")
+        if not np.issubdtype(w.dtype, np.integer):
+            # a float weight would be truncated by the int32 cast: a
+            # different problem, not a rounding detail
+            _reject(f"{name}_weights must be an integer array, got {w.dtype}")
+        if w.size and int(w.min()) < 0:
+            _reject(f"negative {name} weight {int(w.min())} at index {int(np.argmin(w))}")
+        # A total that wraps corrupts every block cap; the count x max
+        # bound clears healthy graphs, else the exact total decides (an
+        # int64 sum where it cannot wrap, Python ints where it could).
+        if w.size:
+            wmax = int(w.max())
+            if wmax > id_max:
+                _reject(f"{name} weight {wmax} exceeds the port's int32 index space")
+            if count * wmax > id_max:
+                if count * wmax <= np.iinfo(np.int64).max:
+                    total = int(w.astype(np.int64).sum())
+                else:
+                    total = int(np.add.reduce(w.astype(object)))
+                if total > id_max:
+                    _reject(f"total {name} weight {total} exceeds the port's "
+                            "int32 index space")
 
 
 def from_numpy_csr(row_ptr, col_idx, node_w=None, edge_w=None, *,

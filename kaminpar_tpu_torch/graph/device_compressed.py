@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..resilience.faults import maybe_inject
 from ..utils.intmath import next_pow2, next_shape_bucket
 from .bucketed import HeavyPart, node_width_plan
 from .compressed import CompressedGraph
@@ -382,4 +383,7 @@ def build_device_view(compression_ctx, cg: CompressedGraph, device):
     if resolve_device_decode(compression_ctx.device_decode) == "off":
         return None
     check_device_decode_envelope(cg)
+    # The "execute" fault-injection point of the device-decode gate; an
+    # injected fault stops the run (no demotion to the dense path).
+    maybe_inject("execute", site="device_decode")
     return DeviceCompressedView(cg, device)

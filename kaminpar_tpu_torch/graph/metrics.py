@@ -28,6 +28,22 @@ def _directed_cut(graph: CSRGraph, lab) -> torch.Tensor:
     return torch.where(cut, graph.edge_w.to(torch.int64), 0).sum()
 
 
+def edge_cut_device(graph: CSRGraph, partition) -> torch.Tensor:
+    """The edge cut as an int64 device scalar (no readback: the quality
+    probes pack it into an existing pull)."""
+    return _directed_cut(graph, _labels(graph, partition)) // 2
+
+
+def quality_scalars_device(graph: CSRGraph, partition, k: int):
+    """Device ``(cut, max block weight)`` int64 scalars for the quality
+    probes (``telemetry/probes.py``): no readback, so that they can ride
+    an existing pull."""
+    lab = _labels(graph, partition)
+    bw = torch.zeros(k, dtype=torch.int64, device=graph.device)
+    bw.index_add_(0, lab, graph.node_w.to(torch.int64))
+    return _directed_cut(graph, lab) // 2, bw.max()
+
+
 def edge_cut(graph: CSRGraph, partition) -> int:
     """Total weight of cut edges, each undirected edge counted once."""
     if graph.m == 0:

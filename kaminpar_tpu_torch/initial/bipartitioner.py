@@ -25,6 +25,7 @@ import torch
 
 from ..context import InitialPartitioningContext
 from ..ops import bipartition
+from ..resilience.faults import maybe_inject
 from ..utils.logger import Logger, OutputLevel
 
 
@@ -398,6 +399,10 @@ def multilevel_bipartition(
     ctx = ctx or InitialPartitioningContext()
     if g.n > 2 and resolve_ip_backend(ctx, device) == "device":
         if bipartition.weights_fit_int32(g.node_w, g.edge_w, max_w):
+            # The "execute" fault-injection point of the device pool, before
+            # the seed draw as in the JAX package.  An injected fault stops
+            # the run: nothing demotes the pool to the host.
+            maybe_inject("execute", site="ip_device")
             seed = int(rng.integers(1 << 62))
             labels, _ = bipartition.pool_bipartition_device(
                 g.row_ptr, g.col_idx, g.node_w, g.edge_w, max_w, seed, ctx, final_k,

@@ -24,6 +24,7 @@ import numpy as np
 
 from ..graph.csr import CSRGraph, from_numpy_csr
 from ..partitioning.kway import graph_to_host
+from ..resilience.errors import GraphValidationError
 from ..utils.logger import Logger
 from . import native
 
@@ -73,7 +74,7 @@ def _tokenize(data: bytes):
 
 def read_metis(path: str, *, use_64bit: bool = False) -> CSRGraph:
     if native.native_requested():
-        graph = from_numpy_csr(*native.parse_metis_native(path), validate_input=True)
+        graph = _checked_csr(path, *native.parse_metis_native(path))
         Logger.log(f"{path}: read by the native METIS parser")
     else:
         graph = _read_metis_numpy(path)
@@ -151,7 +152,18 @@ def _read_metis_numpy(path: str) -> CSRGraph:
         )
     if col_idx.size and (col_idx.min() < 0 or col_idx.max() >= n):
         raise ValueError(f"{path}: neighbor id out of range")
-    return from_numpy_csr(row_ptr, col_idx, node_w, edge_w, validate_input=True)
+    return _checked_csr(path, row_ptr, col_idx, node_w, edge_w)
+
+
+def _checked_csr(path: str, row_ptr, col_idx, node_w, edge_w) -> CSRGraph:
+    """The graph of a parsed file, through the input guard; a file the
+    guard rejects is a malformed file, a plain ``ValueError`` as the JAX
+    package's readers raise (the typed ``GraphValidationError`` is the
+    facade's)."""
+    try:
+        return from_numpy_csr(row_ptr, col_idx, node_w, edge_w, validate_input=True)
+    except GraphValidationError as exc:
+        raise ValueError(f"{path}: {exc}") from None
 
 
 def write_metis(graph: CSRGraph, path: str) -> None:

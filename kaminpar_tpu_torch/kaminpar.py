@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .context import Context
+from .context import Context, PartitioningMode
 from .factories import create_partitioner
 from .graph.compressed import CompressedGraph, compress
 from .graph.csr import CSRGraph, from_numpy_csr
@@ -89,8 +89,16 @@ class KaMinPar:
     def compute_partition(self, k: int, epsilon: float = 0.03,
                           max_block_weights: Optional[Sequence[int]] = None,
                           min_epsilon: float = 0.0,
-                          min_block_weights: Optional[Sequence[int]] = None) -> np.ndarray:
+                          min_block_weights: Optional[Sequence[int]] = None,
+                          resume=None) -> np.ndarray:
         """Partition into k blocks; returns the (n,) int32 block array.
+
+        ``resume``: a checkpoint file or directory (its latest boundary), or
+        a loaded ``CheckpointState``, of a DEEP run that was killed; its
+        fingerprint is checked against this graph and context, and the run
+        goes on from the recorded level boundary, bit for bit as the
+        uninterrupted run (``resilience/checkpoint.py``; DEEP mode and
+        dense inputs only, else ``ValueError``).
 
         Block weight limit: ``max((1+epsilon)*ceil(W/k), ceil(W/k) +
         max_node_weight)`` per block, or the absolute ``max_block_weights``.
@@ -118,13 +126,13 @@ class KaMinPar:
             if pinned is None and graph.m > 0:
                 lp_ctx.weighted_mode = not graph.has_uniform_edge_weights()
             return self._partition(graph, k, epsilon, max_block_weights, min_epsilon,
-                                   min_block_weights, start)
+                                   min_block_weights, start, resume)
         finally:
             lp_ctx.weighted_mode = pinned
 
     def _partition(self, graph: Union[CSRGraph, CompressedGraph], k: int,
                    epsilon: float, max_block_weights, min_epsilon: float,
-                   min_block_weights, start: float) -> np.ndarray:
+                   min_block_weights, start: float, resume=None) -> np.ndarray:
         ctx = self.ctx
         total_node_weight = graph.total_node_weight
         max_node_weight = (int(graph.node_w.max(initial=0))
@@ -153,6 +161,10 @@ class KaMinPar:
         min_bw = ctx.partition.min_block_weights
         if graph.n == 0:
             return np.zeros(0, dtype=np.int32)
+        if resume is not None and (isinstance(graph, CompressedGraph)
+                                   or ctx.mode != PartitioningMode.DEEP):
+            raise ValueError("resume= is supported for DEEP-mode dense inputs only "
+                             "(resilience/checkpoint.py envelope)")
 
         if isinstance(graph, CompressedGraph):
             # The isolated nodes stay in: the strip needs a full CSR rebuild,
@@ -185,6 +197,17 @@ class KaMinPar:
             work_graph = from_numpy_csr(row_ptr, col_idx, node_w, edge_w, device=self.device)
 
         partitioner = create_partitioner(ctx, work_graph)
+        if ctx.mode == PartitioningMode.DEEP:
+            # The top-level DEEP run may write checkpoints and resume; its
+            # fingerprint is the work graph's (isolated nodes stripped),
+            # the graph the partitioner sees.
+            partitioner._checkpoint_top_level = True
+            if resume is not None:
+                from .resilience import checkpoint
+
+                partitioner.resume_state = (
+                    resume if isinstance(resume, checkpoint.CheckpointState)
+                    else checkpoint.load(resume))
         p_graph = partitioner.partition()
         self.last_partitioner = partitioner
         work_part = sync_stats.pull(p_graph.partition).astype(np.int32)

@@ -7,9 +7,11 @@
 4. compact the runs and build the coarse CSR.
 
 A contraction reads back once (``utils/sync_stats.pull``): the coarse node
-and edge counts and the largest coarse node weight, packed into one small
-tensor.  Everything else stays on the device: no boolean-mask index, no
-``bincount``.
+and edge counts, the largest coarse node weight and the coarse total edge
+weight, and the caller's extra device scalars (the clusterer's moved
+count), packed into one small tensor.  The coarsening's quality probe
+(``telemetry/probes.py``) reads its values from that pull.  Everything
+else stays on the device: no boolean-mask index, no ``bincount``.
 
 Deterministic, so it equals the JAX package array for array.  The labels
 cover the graph's PaddedView; pad nodes carry the anchor label and form the
@@ -18,23 +20,24 @@ pure-padding cluster, always the last coarse id, which is dropped.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from ..graph.csr import CSRGraph
+from ..telemetry import probes
 from ..utils import sync_stats
 from .segment import run_ids, run_starts2, segment_sum
 
 
-def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
+def _contract_core(labels, edge_u, col_idx, edge_w, node_w, extra=()):
     """Returns (coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr,
-    max_node_w): coarse ids over the padded node space (the last coarse id
-    is the padding cluster), the compacted coarse edges sorted by (u, v),
-    the coarse row_ptr over the first n_c + 1 entries and the largest
-    coarse node weight.  The one readback of a contraction is a packed
-    (n_c, m_c, max node weight) tensor; every other step keeps its sizes
-    on the device or takes them from that readback."""
+    max_node_w, total_edge_w, extra_host): coarse ids over the padded node
+    space (the last coarse id is the padding cluster), the compacted
+    coarse edges sorted by (u, v), the coarse row_ptr over the first
+    n_c + 1 entries, the largest coarse node weight, the coarse total edge
+    weight and the host values of the device scalars ``extra``.  The one
+    readback of a contraction is a packed (n_c, m_c, max node weight,
+    total edge weight, *extra) tensor; every other step keeps its sizes on
+    the device or takes them from that readback."""
     n = int(labels.shape[0])
     m = int(col_idx.shape[0])
     dev = labels.device
@@ -67,38 +70,51 @@ def _contract_core(labels, edge_u, col_idx, edge_w, node_w):
     row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                          torch.cumsum(deg_c, 0)]).to(torch.int32)
     stats = torch.stack([present.sum(dtype=torch.int64), valid.sum(dtype=torch.int64),
-                         c_node_w.max().to(torch.int64)])
-    n_c, m_c, max_node_w = (int(x) for x in sync_stats.pull(stats))
+                         c_node_w.max().to(torch.int64), sw.sum(dtype=torch.int64),
+                         *(torch.as_tensor(x, device=dev).to(torch.int64) for x in extra)])
+    n_c, m_c, max_node_w, total_edge_w, *extra_host = (int(x) for x in sync_stats.pull(stats))
     slot = torch.where(valid, rid.to(torch.int64), torch.full_like(su, m_c))
     out_u = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, su)
     out_v = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, sv)
     out_w = run_w[:m_c]
     return (coarse_of, n_c, c_node_w, out_u[:m_c].to(torch.int32),
-            out_v[:m_c].to(torch.int32), out_w, row_ptr, max_node_w)
+            out_v[:m_c].to(torch.int32), out_w, row_ptr, max_node_w, total_edge_w,
+            tuple(extra_host))
 
 
-def _coarse_graph(outs, n_fine: int, total_node_weight, device):
+def _coarse_graph(outs, n: int, m: int, total_node_weight, device):
     """The coarse graph and fine -> coarse map of ``_contract_core``'s
-    outputs; the pure-padding anchor cluster (always last) is dropped."""
-    coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr, max_node_w = outs
+    outputs for a fine graph of n nodes and m edges; the pure-padding
+    anchor cluster (always last) is dropped.  With extra scalars the host
+    values come third."""
+    (coarse_of, n_c, c_node_w, out_u, out_v, out_w, row_ptr, max_node_w,
+     total_edge_w, extra_host) = outs
     n_c -= 1
     coarse = CSRGraph(row_ptr[: n_c + 1], out_v, c_node_w[:n_c], out_w,
                       edge_u=out_u, device=device)
     coarse._total_node_weight = total_node_weight
     coarse._max_node_weight = max_node_w if n_c > 0 else 0
-    return coarse, coarse_of[:n_fine]
+    coarse._total_edge_weight = total_edge_w
+    probes.contraction_level(n=n, m=m, n_c=coarse.n, m_c=coarse.m,
+                             max_node_weight=coarse._max_node_weight,
+                             total_edge_weight=total_edge_w)
+    out = (coarse, coarse_of[:n])
+    return out + (extra_host,) if extra_host else out
 
 
-def contract_clustering(graph: CSRGraph, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
+def contract_clustering(graph: CSRGraph, labels_padded, extra_scalars=()):
     """Contract a clustering (over ``graph.padded()``) into a coarse graph.
     Returns ``(coarse_graph, coarse_of)`` with ``coarse_of[u]`` the coarse
-    node of fine node u (u < graph.n)."""
+    node of fine node u (u < graph.n), and with ``extra_scalars`` (device
+    scalars packed into the contraction's one readback) their host values
+    as a third item."""
     pv = graph.padded()
-    outs = _contract_core(labels_padded, pv.edge_u, pv.col_idx, pv.edge_w, pv.node_w)
-    return _coarse_graph(outs, graph.n, graph._total_node_weight, graph.device)
+    outs = _contract_core(labels_padded, pv.edge_u, pv.col_idx, pv.edge_w, pv.node_w,
+                          extra_scalars)
+    return _coarse_graph(outs, graph.n, graph.m, graph._total_node_weight, graph.device)
 
 
-def contract_compressed(cv, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
+def contract_compressed(cv, labels_padded, extra_scalars=()):
     """:func:`contract_clustering` off a ``DeviceCompressedView``: the fine
     edges are decoded (``decode_flat_padded``) straight into the
     sort-reduce and die with it, so no dense finest CSR stays resident.
@@ -107,9 +123,9 @@ def contract_compressed(cv, labels_padded) -> Tuple[CSRGraph, torch.Tensor]:
 
     _, col, ew, eu = decode_flat_padded(cv.stream, cv.wstart_pad, cv.width_pad,
                                         cv.degree_pad, m=cv.m, m_pad=cv.m_pad)
-    outs = _contract_core(labels_padded, eu, col, ew, cv.node_w_pad)
+    outs = _contract_core(labels_padded, eu, col, ew, cv.node_w_pad, extra_scalars)
     del col, ew, eu
-    return _coarse_graph(outs, cv.n, cv.total_node_weight, cv.device)
+    return _coarse_graph(outs, cv.n, cv.m, cv.total_node_weight, cv.device)
 
 
 def project_partition(coarse_of: torch.Tensor, coarse_partition: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,9 @@ from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import (HostCSR, extract_all_subgraphs, recursive_bipartition,
                                      resolve_ip_backend)
 from ..refinement.balancer import _balance_round, draw_balance_round
+from ..resilience import checkpoint as _ckpt
+from ..resilience.faults import maybe_inject
+from ..telemetry import probes
 from ..utils import RandomState, debug as debug_dumps, platform, sync_stats
 from ..utils.logger import Logger, OutputLevel
 from ..utils.timer import ScopeClock, Timer, scoped_timer
@@ -230,6 +233,17 @@ class DeepMultilevelPartitioner:
         self.ip_pulls = 0
         # The DeviceCompressedView the finest level ran off, if any.
         self.compressed_view = None
+        # Checkpoints (resilience/checkpoint.py): the facade marks its own
+        # top-level DEEP run eligible and may hand it a loaded
+        # CheckpointState to resume from.  Nested pipelines (extension
+        # jobs, v-cycle cycles) never set the flag, so an armed
+        # KPTPU_CHECKPOINT cannot make them overwrite the run's files.
+        self._checkpoint_top_level = False
+        self.resume_state = None
+        # The last run's checkpoint writer (None when disarmed) and the
+        # seconds of its restore (0.0 without a resume).
+        self.checkpoint_writer = None
+        self.restore_s = 0.0
 
     def _refine(self, graph: CSRGraph, part, cur_k: int, coarse: bool) -> PartitionedGraph:
         max_bw = intermediate_block_weights(
@@ -328,9 +342,55 @@ class DeepMultilevelPartitioner:
             coarsener.set_communities(self.communities)
         n0 = coarsener.current_n
         jobs = new_job_stats()
+
+        # Checkpoints: the top-level run writes its resumable state at every
+        # level boundary (and may itself be a resumed run).  The writer's
+        # readbacks count under their own phase, held to its exact
+        # entitlement below, and to 0 when disarmed.
+        resume = self.resume_state if self._checkpoint_top_level else None
+        sync_pre_cw = sync_stats.phase_count("checkpoint_write")
+        sync_pre_cr = sync_stats.phase_count("checkpoint_restore")
+        ckpt = (_ckpt.writer_for(ctx, self.graph, communities=self.communities,
+                                 compressed=self.compressed, resume=resume)
+                if self._checkpoint_top_level else None)
+        self.checkpoint_writer = ckpt
+        resumed_up = resume is not None and resume.stage == "uncoarsening"
+        p_graph = None
+        if resume is not None:
+            _ckpt.validate_fingerprint(resume, ctx, self.graph)
+            t0 = time.perf_counter()
+            with scoped_timer("checkpoint_restore"):
+                _ckpt.restore_into(coarsener, resume, self.device)
+                if resumed_up:
+                    # the dead run's initial partitioning and refinement up
+                    # to this level are in the restored partition
+                    p_graph = PartitionedGraph.create(
+                        coarsener.current_graph, resume.cur_k,
+                        _ckpt.to_device(resume.partition, self.device),
+                        intermediate_block_weights(
+                            np.asarray(ctx.partition.max_block_weights, dtype=np.int64),
+                            resume.cur_k),
+                        ctx.partition.min_block_weights if resume.cur_k == k else None)
+                # every later draw equals the uninterrupted run's
+                RandomState.restore(resume.rng)
+            self.restore_s = time.perf_counter() - t0
+
+        def coarsen_boundary(c):
+            if ckpt is not None:
+                ckpt.on_coarsen_level(c)
+            # after the write: a kill here finds the boundary on disk
+            maybe_inject("preempt", site=f"deep_coarsen:{c.num_levels}")
+
         with scoped_timer("partitioning"):
             sync_pre = sync_stats.phase_count("coarsening")
-            coarsest = coarsener.coarsen(k, ctx.partition.epsilon, 2 * C)
+            if resumed_up:
+                # the restored stack is the whole hierarchy: the dead run
+                # had finished coarsening
+                coarsest = coarsener.current_graph
+            else:
+                coarsest = coarsener.coarsen(
+                    k, ctx.partition.epsilon, 2 * C,
+                    on_level=coarsen_boundary if self._checkpoint_top_level else None)
             self.contractions = coarsener.contractions
             self.coarsening_pulls = sync_stats.phase_count("coarsening") - sync_pre
             # one readback a contraction (ops/contraction.py)
@@ -344,10 +404,12 @@ class DeepMultilevelPartitioner:
                 self.graph = None
             self.num_levels = coarsener.num_levels
 
-            rng = RandomState.numpy_rng()
-            if self.communities is not None:
+            if resumed_up:
+                cur_k = resume.cur_k
+            elif self.communities is not None:
                 # v-cycle: the coarsest partition is the previous cycle's,
                 # projected to the coarsest level
+                RandomState.numpy_rng()  # unused here, drawn as the reference does
                 cur_k = self.communities_k
                 part = sync_stats.pull(coarsener.current_communities,
                                        phase="initial_partitioning").astype(np.int32)
@@ -358,6 +420,7 @@ class DeepMultilevelPartitioner:
                 budgets = intermediate_block_weights(
                     np.asarray(ctx.partition.max_block_weights, dtype=np.int64), cur_k
                 )
+                rng = RandomState.numpy_rng()
                 sync_pre_ip = sync_stats.phase_count("initial_partitioning")
                 with scoped_timer("initial_partitioning"):
                     part = recursive_bipartition(
@@ -376,21 +439,40 @@ class DeepMultilevelPartitioner:
                 f"levels={coarsener.num_levels} k0={cur_k}",
                 OutputLevel.DEBUG,
             )
-            p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
-            p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
+            if not resumed_up:
+                p_graph = self._refine(coarsest, part, cur_k, coarsener.num_levels > 0)
+                p_graph = self._restrict(p_graph, part, cur_k, coarsener.current_communities)
 
+            # A resume at an uncoarsening boundary re-enters the loop at that
+            # boundary: it writes and injects nothing there, so the later
+            # boundaries keep the dead run's numbers.
+            at_resumed_boundary = resumed_up
             sync_pre_cd = sync_stats.phase_count("compressed_decode")
             while True:
                 graph = coarsener.current_graph
                 target_k = compute_k_for_n(graph.n, C, k) if coarsener.num_levels > 0 else k
                 if cur_k < target_k:
                     with scoped_timer("extend_partition"):
-                        part = extend_partition(graph, sync_stats.pull(p_graph.partition),
-                                                cur_k, target_k, ctx, jobs)
+                        # the level's quality row (cut, max block weight)
+                        # rides this readback, packed behind the partition
+                        part = extend_partition(
+                            graph,
+                            probes.pull_partition_with_quality(p_graph,
+                                                               level=coarsener.num_levels),
+                            cur_k, target_k, ctx, jobs)
                     cur_k = target_k
                     p_graph = self._refine(graph, part, cur_k, coarsener.num_levels > 0)
                     p_graph = self._restrict(p_graph, part, cur_k,
                                              coarsener.current_communities)
+                # Level boundary: this level's extension and refinement are
+                # done.  Write the resumable state, then the preemption point.
+                if at_resumed_boundary:
+                    at_resumed_boundary = False
+                else:
+                    if ckpt is not None:
+                        ckpt.on_uncoarsen_boundary(coarsener, p_graph, cur_k)
+                    if self._checkpoint_top_level:
+                        maybe_inject("preempt", site=f"deep_uncoarsen:{coarsener.num_levels}")
                 if coarsener.num_levels == 0:
                     break
                 debug_dumps.dump_graph_hierarchy(graph, coarsener.num_levels, ctx)
@@ -403,6 +485,13 @@ class DeepMultilevelPartitioner:
                                          coarsener.current_communities)
             # the finest level's decode on the device reads nothing back
             sync_stats.assert_phase_budget("compressed_decode", 0, since=sync_pre_cd)
+            # The writer's exact entitlement (5 pulls a newly cached level, 1
+            # a written uncoarsening boundary), 0 when disarmed; the restore
+            # copies to the device only.
+            sync_stats.assert_phase_budget(
+                "checkpoint_write", ckpt.pull_budget if ckpt is not None else 0,
+                since=sync_pre_cw)
+            sync_stats.assert_phase_budget("checkpoint_restore", 0, since=sync_pre_cr)
             debug_dumps.dump_partition_hierarchy(p_graph, 0, ctx)
         self.phase_seconds = clock.seconds()
         self.phase_seconds.update({

@@ -19,6 +19,7 @@ from ..factories import create_refiner
 from ..graph.csr import CSRGraph
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import HostCSR, recursive_bipartition, resolve_ip_backend
+from ..telemetry import probes
 from ..utils import RandomState, sync_stats
 from ..utils.logger import Logger, OutputLevel
 from ..utils.timer import ScopeClock, scoped_timer
@@ -110,9 +111,13 @@ class KWayMultilevelPartitioner:
                 p_graph)
             while coarsener.num_levels > 0:
                 fine_part = coarsener.uncoarsen(p_graph.partition)
-                p_graph = PartitionedGraph.create(coarsener.current_graph, k, fine_part,
-                                                  max_bw, min_bw)
+                fine_graph = coarsener.current_graph
+                p_graph = PartitionedGraph.create(fine_graph, k, fine_part, max_bw, min_bw)
                 p_graph = create_refiner(ctx, coarse_level=coarsener.num_levels > 0).refine(
                     p_graph)
+                # a marker row of host-known sizes (the refiners' own rows
+                # carry what their existing pulls read)
+                probes.uncoarsening_level(level=coarsener.num_levels, n=fine_graph.n,
+                                          m=fine_graph.m, k=k, kind="kway_level")
         self.phase_seconds = clock.seconds()
         return p_graph

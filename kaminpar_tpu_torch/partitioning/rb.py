@@ -18,6 +18,7 @@ from ..graph.csr import CSRGraph, from_numpy_csr
 from ..graph.partitioned import PartitionedGraph
 from ..initial.bipartitioner import extract_subgraph
 from ..refinement.balancer import UnderloadBalancer
+from ..telemetry import probes
 from ..utils import sync_stats
 from ..utils.timer import scoped_timer
 from .kway import KWayMultilevelPartitioner, graph_to_host
@@ -52,6 +53,9 @@ class RBMultilevelPartitioner:
         k1 = k - k0
         budgets = np.array([max_bw[:k0].sum(), max_bw[k0:].sum()], dtype=np.int64)
         bi = self._bisect(graph, budgets)
+        # a marker row per bisection (host-known sizes); the bisection's
+        # own pipeline records its levels
+        probes.refinement_pass("rb_bisection", n=graph.n, m=graph.m, k0=k0, k1=k1)
         part = np.zeros(graph.n, dtype=np.int32)
         host = graph_to_host(graph)
         for side, (kk, offset) in enumerate(((k0, 0), (k1, k0))):

@@ -18,6 +18,7 @@ import numpy as np
 from ..context import Context
 from ..graph.csr import CSRGraph
 from ..graph.partitioned import PartitionedGraph
+from ..telemetry import probes
 from ..utils.logger import Logger, OutputLevel
 from .deep import DeepMultilevelPartitioner
 from .partition_utils import intermediate_block_weights, split_offsets
@@ -67,6 +68,11 @@ class VcycleDeepMultilevelPartitioner:
                                                     communities_k=communities_k)
             p_graph = partitioner.partition()
             communities, communities_k = p_graph.partition, step_k
+            # The cycle's row.  The port hands the communities on without a
+            # readback (the JAX package pulls them and packs the cut in),
+            # so the row carries the host-known sizes only.
+            probes.uncoarsening_level(level=len(self.cycles), n=self.graph.n,
+                                      m=self.graph.m, k=step_k, kind="vcycle_quality")
             self.cycles.append(dict(k=step_k, levels=partitioner.num_levels,
                                     coarsest=partitioner.coarsest,
                                     phase_s=partitioner.phase_seconds))

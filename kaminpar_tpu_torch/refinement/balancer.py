@@ -33,6 +33,7 @@ from ..graph.bucketed import BucketedView
 from ..graph.partitioned import PartitionedGraph
 from ..ops.bucketed_gains import bucketed_best_moves, draw_ties
 from ..ops.segment import first_argmin, segment_max, segment_min, segment_sum
+from ..telemetry import probes
 from ..utils import RandomState, sync_stats
 from ..utils.timer import scoped_timer
 from .refiner import Refiner
@@ -208,12 +209,15 @@ class OverloadBalancer(Refiner):
         labels = pv.pad_node_array(p_graph.partition, 0)
         gen = RandomState.generator(graph.device)
         with scoped_timer("overload_balancer"):
-            for _ in range(self.ctx.max_num_rounds):
+            for rnd in range(self.ctx.max_num_rounds):
                 labels, flags = _balance_round(
                     labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
                     max_bw, k=p_graph.k,
                 )
                 num_moved, still = sync_stats.pull(flags)
+                # the round's quality row, from its existing pull
+                probes.refinement_round("overload_balancer", round_idx=rnd,
+                                        moved=int(num_moved))
                 if not still or num_moved == 0:
                     break
         return p_graph.with_partition(labels[: pv.n])
@@ -240,12 +244,15 @@ class UnderloadBalancer(Refiner):
         labels = pv.pad_node_array(p_graph.partition, 0)
         gen = RandomState.generator(graph.device)
         with scoped_timer("underload_balancer"):
-            for _ in range(self.ctx.max_num_rounds):
+            for rnd in range(self.ctx.max_num_rounds):
                 labels, flags = _underload_round(
                     labels, draw_balance_round(gen, bv, pv.n_pad), bv, pv.node_w,
                     max_bw, min_bw, k=p_graph.k,
                 )
                 num_moved, still = sync_stats.pull(flags)
+                # the round's quality row, from its existing pull
+                probes.refinement_round("underload_balancer", round_idx=rnd,
+                                        moved=int(num_moved))
                 if not still or num_moved == 0:
                     break
         return p_graph.with_partition(labels[: pv.n])

@@ -16,10 +16,12 @@ from __future__ import annotations
 import torch
 
 from ..context import ColoredLPContext
+from ..graph import metrics
 from ..graph.partitioned import PartitionedGraph
 from ..ops import lp
 from ..ops.bucketed_gains import I32MAX
 from ..ops.coloring import color_graph, num_colors_device
+from ..telemetry import probes, trace as ttrace
 from ..utils import RandomState, sync_stats
 from ..utils.timer import scoped_timer
 from .refiner import Refiner
@@ -51,7 +53,8 @@ class CLPRefiner(Refiner):
             state = lp.init_state(part, pv.node_w, k_pad)
             before = p_graph.edge_cut()
             allow_tie_moves = self.ctx.allow_tie_moves
-            for _ in range(self.ctx.num_iterations):
+            rec = ttrace.active()
+            for it in range(self.ctx.num_iterations):
                 state = lp.clp_iterate_colors(
                     state,
                     lambda c: lp.draw_lp_round(gen, bv, pv.n_pad,
@@ -59,7 +62,17 @@ class CLPRefiner(Refiner):
                     bv, pv.node_w, max_w, colors, nc, num_labels=k_pad,
                     allow_tie_moves=allow_tie_moves,
                 )
-                if int(sync_stats.pull(state.num_moved)) == 0:
+                if rec is not None:
+                    # the iteration's cut rides its one readback, packed
+                    # with the moved count (exact in int32: the cut is at
+                    # most the total edge weight)
+                    cut = metrics.edge_cut_device(graph, state.labels[: pv.n])
+                    moved, cut = (int(x) for x in sync_stats.pull(
+                        torch.stack([state.num_moved, cut.to(state.num_moved.dtype)])))
+                    probes.refinement_round("clp_refinement", round_idx=it, moved=moved, cut=cut)
+                else:
+                    moved = int(sync_stats.pull(state.num_moved))
+                if moved == 0:
                     break
             ts.note(state.labels)
         # Tie diffusion can wander: keep the better of input and output.

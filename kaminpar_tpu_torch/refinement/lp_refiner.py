@@ -15,6 +15,7 @@ import torch
 from ..context import LabelPropagationContext
 from ..graph.partitioned import PartitionedGraph
 from ..ops import lp
+from ..telemetry import probes
 from ..utils import RandomState
 from ..utils.timer import scoped_timer
 from .refiner import Refiner
@@ -49,4 +50,9 @@ class LPRefiner(Refiner):
                 allow_tie_moves=allow_tie_moves,
             )
             ts.note(state.labels)
+            # a marker row of host-known sizes: the pass's moved count and
+            # cut stay on the device (the next existing pull of the deep
+            # scheme carries the level's cut)
+            probes.refinement_pass("lp_refinement", n=pv.n, k=k,
+                                   rounds_budget=self.ctx.num_iterations)
         return p_graph.with_partition(state.labels[: pv.n])

@@ -43,6 +43,18 @@ AUX_PHASES = (
     # the last uncoarsening step (no readback; asserted).
     "compressed_build",
     "compressed_decode",
+    # The flight recorder's heartbeat thread (telemetry/flight_recorder.py):
+    # it reads the phase board and /proc, never the device.
+    "heartbeat",
+    # Checkpoints of the deep pipeline (resilience/checkpoint.py).
+    # checkpoint_write: each new coarse level's arrays are pulled once and
+    # cached on the host, and each written uncoarsening boundary pulls its
+    # partition; partitioning/deep.py asserts the writer's exact
+    # entitlement, and 0 when checkpoints are disarmed.
+    # checkpoint_restore: the level stack rebuilt onto the device from the
+    # host arrays, host-to-device copies only (0 pulls, asserted).
+    "checkpoint_write",
+    "checkpoint_restore",
 )
 
 KNOWN_PHASES = frozenset(CORE_PHASES + AUX_PHASES)

@@ -7,7 +7,10 @@ One :class:`TraceRecorder` per run collects
   (``utils/timer.py`` emits them),
 - **counter samples**: the readback census (``utils/sync_stats.py``,
   ``host_sync``) and the device memory at every scope exit
-  (``utils/heap_profiler.py``, ``device_bytes``).
+  (``utils/heap_profiler.py``, ``device_bytes``),
+- **quality rows**: the per-level records of the probes
+  (``telemetry/probes.py``: level sizes, cut, imbalance, moved counts),
+  exported under ``otherData.quality``.
 
 The trace exports to Chrome trace-event JSON (``chrome://tracing``,
 Perfetto's JSON importer).  Timestamps are microseconds on one
@@ -58,6 +61,9 @@ class TraceRecorder:
         self.dropped_events = 0
         # per tid: was each open span's B admitted?
         self._span_admitted: Dict[int, List[bool]] = {}
+        #: the per-level quality rows of the probes (telemetry/probes.py),
+        #: exported in the trace's otherData
+        self.quality: List[dict] = []
         #: free-form run metadata (graph, k, preset, ...), exported as is
         self.meta: Dict[str, object] = {}
         self.profile_phases = frozenset(profile_phases)
@@ -134,6 +140,18 @@ class TraceRecorder:
                     "pid": _PID, "tid": self._tid(),
                     "args": {k: v for k, v in values.items() if v is not None}})
 
+    def quality_row(self, kind: str, **values) -> dict:
+        """Record a per-level quality row and its counter sample (numeric
+        values only on the counter track)."""
+        row = {"kind": kind, "t_us": round(self._now_us(), 1)}
+        row.update(values)
+        with self._lock:
+            self.quality.append(row)
+        self.counter(f"quality/{kind}",
+                     {k: v for k, v in values.items()
+                      if isinstance(v, (int, float)) and not isinstance(v, bool)})
+        return row
+
     # -- torch.profiler arming ----------------------------------------------
 
     def arm_profiler(self, phase: str) -> bool:
@@ -185,6 +203,7 @@ class TraceRecorder:
         now = self._now_us()
         with self._lock:
             events = sorted(self._events, key=lambda e: e.get("ts", 0.0))
+            quality = list(self.quality)
             meta = dict(self.meta)
         open_spans: Dict[tuple, list] = {}
         for ev in events:
@@ -206,6 +225,7 @@ class TraceRecorder:
                 "epoch_s": round(self.epoch_s, 3),
                 "dropped_events": self.dropped_events,
                 "profile_traces": list(self.profile_traces),
+                "quality": quality,
                 **meta,
             },
         }
@@ -238,10 +258,12 @@ class TraceRecorder:
     def summary(self) -> dict:
         with self._lock:
             events = list(self._events)
+            n_quality = len(self.quality)
         return {
             "events": len(events),
             "spans": sum(1 for e in events if e.get("ph") == "B"),
             "counter_samples": sum(1 for e in events if e.get("ph") == "C"),
+            "quality_rows": n_quality,
             "dropped_events": self.dropped_events,
             "duration_s": round(self._now_us() / 1e6, 3),
         }

@@ -13,6 +13,11 @@ number of readbacks a counted, testable metric:
   contraction costs one pull.
 - Phases come from the timer tree: ``utils/timer.scoped_timer`` pushes its
   scope name as the phase, so the counts line up with the timer report.
+  Every thread's phase stack is on a board that other threads read
+  (:func:`current_phases`): the flight recorder's heartbeat and the
+  watchdog's dossier name the phase a process died in from it.
+- Every :func:`pull` is the ``readback`` fault-injection point
+  (``resilience/faults.py``).
 - :func:`tripwire` patches ``torch.Tensor.__int__``, ``__float__``,
   ``__bool__``, ``item`` and ``tolist`` to count *implicit* pulls, the
   ``int(x)``-style strays.  It counts them on CPU tensors too, so CPU
@@ -40,6 +45,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..resilience.faults import maybe_inject
 from ..telemetry import trace as _ttrace
 
 _lock = threading.Lock()
@@ -55,6 +61,10 @@ _tls = threading.local()
 _budget_checks = False
 _DEFAULT_PHASE = "untracked"
 _SYNC_WARNING = "called a synchronizing CUDA operation"
+# thread ident -> (thread name, that thread's live phase stack); read by
+# other threads without the owner's lock (a torn read sees a stack one
+# push or pop off, never an error)
+_phase_board: Dict[int, tuple] = {}
 
 
 def _phase() -> str:
@@ -71,6 +81,9 @@ def push_phase(name: str) -> None:
     stack = getattr(_tls, "stack", None)
     if stack is None:
         stack = _tls.stack = []
+        with _lock:
+            _phase_board[threading.get_ident()] = (
+                threading.current_thread().name or "thread", stack)
     stack.append(name)
 
 
@@ -78,6 +91,20 @@ def pop_phase() -> None:
     stack = getattr(_tls, "stack", None)
     if stack:
         stack.pop()
+
+
+def current_phases() -> Dict[str, str]:
+    """{thread name: innermost open phase} over every thread that ever
+    pushed one ("" for an empty stack)."""
+    with _lock:
+        board = list(_phase_board.values())
+    out = {}
+    for name, stack in board:
+        # one read of the live list: its owner may pop between a check
+        # and an index
+        top = stack[-1:]
+        out[name] = top[0] if top else ""
+    return out
 
 
 @contextmanager
@@ -143,6 +170,7 @@ def pull(*tensors, phase: str | None = None, lanes: int = 0, shards: int = 0):
     bytes counted per tensor against ``phase`` or the current phase.
     ``lanes``/``shards`` mark a stacked or mesh-wide readback as in the JAX
     package.  Returns one array for one input, else a tuple."""
+    maybe_inject("readback", site=phase or _phase())
     out = []
     with allow_transfers():
         for t in tensors:

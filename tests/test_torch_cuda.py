@@ -1060,3 +1060,113 @@ def test_native_parser_equals_numpy_parser_at_scale_16(cuda, tmp_path, monkeypat
     for name in ("row_ptr", "col_idx", "node_w", "edge_w"):
         assert torch.equal(getattr(by_native, name), getattr(by_numpy, name)), name
         assert torch.equal(getattr(by_native, name), getattr(g, name)), name
+
+
+# -- checkpoints, the random streams' position and the probes on the card ----
+
+
+@pytest.mark.cuda
+def test_cuda_generator_state_round_trips(cuda):
+    """The chain position restores a CUDA Philox generator's draws."""
+    from kaminpar_tpu_torch.utils import RandomState
+
+    RandomState.reseed(5)
+    gen = RandomState.generator(cuda)
+    torch.rand(1000, generator=gen, device=cuda)
+    pos = RandomState.chain_position()
+    assert [dev for dev, _ in pos["gens"]] == ["cuda:0"]
+    first = (torch.randint(0, 1 << 30, (1000,), generator=RandomState.generator(cuda),
+                           device=cuda), RandomState.numpy_rng().integers(1 << 30, size=10))
+    RandomState.restore(pos)
+    again = (torch.randint(0, 1 << 30, (1000,), generator=RandomState.generator(cuda),
+                           device=cuda), RandomState.numpy_rng().integers(1 << 30, size=10))
+    assert torch.equal(first[0], again[0]) and np.array_equal(first[1], again[1])
+
+
+def _ckpt_solver(device, directory=None):
+    solver = kp.KaMinPar("default", device=device)
+    solver.ctx.seed = 7
+    solver.ctx.coarsening.contraction_limit = 128
+    if directory is not None:
+        solver.ctx.resilience.checkpoint_dir = str(directory)
+        solver.ctx.resilience.checkpoint_keep_all = True
+    solver.set_graph(generators.rmat_graph(12, 16, seed=2))
+    return solver
+
+
+@pytest.mark.cuda
+def test_every_boundary_resumes_bit_identical_on_card(cuda, tmp_path):
+    """Every level boundary of a card run of rmat_graph(12) resumes to the
+    uninterrupted partition bit for bit, the restore with no pull and no
+    card sync outside a pull; a card checkpoint is rejected on the CPU."""
+    from kaminpar_tpu_torch.resilience import checkpoint
+    from kaminpar_tpu_torch.utils import sync_stats
+
+    ref = _ckpt_solver(cuda).compute_partition(16)
+    sync_stats.enable_budget_checks(True)
+    try:
+        armed = _ckpt_solver(cuda, tmp_path).compute_partition(16)
+    finally:
+        sync_stats.enable_budget_checks(False)
+    assert np.array_equal(ref, armed)
+    files = sorted(tmp_path.glob("ckpt_deep_b*.npz"))
+    stages = {checkpoint.load(str(f)).stage for f in files}
+    assert stages == {"coarsening", "uncoarsening"}, files
+    for f in files:
+        sync_stats.reset()
+        sync_stats.enable_budget_checks(True)
+        try:
+            with sync_stats.count_device_syncs():
+                got = _ckpt_solver(cuda).compute_partition(16, resume=str(f))
+        finally:
+            sync_stats.enable_budget_checks(False)
+        snap = sync_stats.snapshot()
+        assert np.array_equal(ref, got), f
+        assert snap["phases"].get("checkpoint_restore", {"count": 0})["count"] == 0
+        assert snap["device_syncs"].get("checkpoint_restore", 0) == 0, snap["device_syncs"]
+    with pytest.raises(checkpoint.CheckpointMismatchError, match="device='cuda' vs 'cpu'"):
+        _ckpt_solver("cpu").compute_partition(16, resume=str(files[-1]))
+
+
+@pytest.mark.cuda
+def test_probes_add_no_card_sync(cuda):
+    """With a trace armed (the quality probes live), the card's partition
+    and every phase's pulls and synchronizing calls outside a pull are
+    those of the unarmed run."""
+    from kaminpar_tpu_torch import telemetry
+    from kaminpar_tpu_torch.utils import sync_stats
+
+    def run(armed):
+        solver = _ckpt_solver(cuda)
+        sync_stats.reset()
+        with sync_stats.count_device_syncs():
+            if armed:
+                with telemetry.run() as rec:
+                    part = solver.compute_partition(16)
+                assert rec.quality
+            else:
+                part = solver.compute_partition(16)
+        snap = sync_stats.snapshot()
+        return part, {ph: row["count"] for ph, row in snap["phases"].items()}, \
+            snap["device_syncs"]
+
+    plain = run(False)
+    armed = run(True)
+    assert np.array_equal(plain[0], armed[0])
+    assert plain[1] == armed[1]
+    assert plain[2] == armed[2]
+
+
+@pytest.mark.cuda
+def test_injected_fault_on_card_raises_typed_error(cuda):
+    """An injected execute fault at the LP dispatch and a readback fault
+    stop a card run with ExecuteFault; nothing demotes."""
+    from kaminpar_tpu_torch.resilience import breakers, errors, faults
+
+    for plan in ("execute@lp_pallas:execute-fault", "readback@coarsening:execute-fault"):
+        faults.reset()
+        with faults.injected_faults(plan):
+            with pytest.raises(errors.ExecuteFault):
+                _ckpt_solver(cuda).compute_partition(16)
+    faults.reset()
+    assert breakers.global_registry().demotions() == {}
