@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                 # largek at RMAT scale 22; terapart, jet, kway
+    python3 chip_smoke.py                 # largek at RMAT scale 21; terapart, jet, kway
                                           # and linear-time-kway 20; default and vcycle
                                           # 18; the scheme checks 16; strong 13
     python3 chip_smoke.py --scale 16      # a quicker run
@@ -13,8 +13,10 @@
 The terapart and jet paths run on ``rmat_graph(path_scale, 16, seed=1)``
 (``path_scale`` = scale - 2 unless ``--path-scale`` gives it), the default
 path on ``rmat_graph(scale - 4)`` and the largek path on
-``rmat_graph(scale)``: the largek path's time pushed the earlier paths
-below its scale, default first.  Each graph is built once, on the card
+``rmat_graph(scale - LARGEK_SCALE_CUT)``: the largek path's time pushed
+the earlier paths below its scale, default first, and the serve phase
+(16) took largek itself from scale 22 to 21 (k = 1024 stays), when the
+script passed 1,100 s of its 1,200 s on a slow host.  Each graph is built once, on the card
 (``rmat_graph(device=...)``, the host build's graph).  Phases, each of
 which fails the run when it fails:
 
@@ -185,6 +187,29 @@ which fails the run when it fails:
     boundary's write seconds and bytes (the child's checkpoint log lines),
     the restore and resume seconds, and the writer's pulls against its
     entitlement.
+16. serve, right after 15: ``PartitionEngine("serve",
+    warm_ladder=(16384,), warm_ks=(8,), max_batch=8)`` on the card (its
+    warmup report must show 0 nvcc builds: phase 2 built the kernels);
+    a burst of ``SERVE_BURST`` requests, ``rmat_graph(14, 8,
+    seed=100 + i)`` into 8 blocks, submitted at once, must run as one
+    lane-stacked batch of 8 lanes (kernels #1 and #3 over the union of the
+    lanes: the ``serve`` path of ``launches_by_path``) with 0 fallbacks
+    and no breaker tripped; every partition feasible and equal bit for
+    bit to ``KaMinPar("serve").compute_partition(8)`` of its graph on the
+    card (the ``serve-pergraph`` path).  It prints the stacked wall beside
+    the eight sequential walls, the stacked pulls against the lane pulls
+    and the sequential pulls, p50/p99 latency, batch and lane occupancy,
+    and the burst's peak memory against ``capacity.predict_for_graph``.
+    Then admission: with ``queue_bound=2`` the third request is rejected
+    with ``QueueFullError`` and ``retry_after_s > 0``, and with
+    ``capacity_ceiling_bytes`` pinned below the prediction a request is
+    rejected with ``CapacityError`` before it is queued; neither launches a
+    kernel.  ``engine.metrics_text()`` must parse with
+    ``telemetry/prometheus.validate``.  Last, ``python -m
+    kaminpar_tpu_torch.serve --demo 4 --ladder 4096 --warm-ks 8
+    --max-batch 4 --trace-out ...`` in a subprocess with no ``--device``:
+    rc 0, its stats JSON, a valid trace; its launches (the ``serve-cli``
+    path) come back through phase 14's hook.
 
 The rating kernels are also timed bucket by bucket: one JSON line per
 bucket with its width, rows, real rows, time and bound, beside the
@@ -240,6 +265,10 @@ OFF_FINEST_K = 4
 # packages' ratios; PERF.md §6 has the table.
 LARGE_K = 1024
 LARGE_K_CUT_BOUND = 0.97
+# The largek path runs this many scales below --scale (0 until the serve
+# phase joined the script; at scale 22 the whole run then took 1,163 s of
+# its 1,200 s on an NVIDIA H100 80GB HBM3 at 700 W).
+LARGEK_SCALE_CUT = 1
 # The pooled = serial check: largek into 64 blocks of rmat_graph(12) (its
 # level 0, 3,352 nodes, extends on the device; at scale 13 the check took
 # 89 s of the script's time limit on a card whose host paced it slowly).
@@ -283,6 +312,11 @@ SYNCS_BEFORE_PROBES = dict(extend_partition=75, lp_clustering=59, partitioning=5
 # that the resume restores the level stack and a partition).
 HEARTBEAT_S = 0.5
 PREEMPT_PLAN = "preempt@deep_uncoarsen:execute-fault"
+# The serve phase: a burst of SERVE_BURST requests of rmat_graph(14, 8)
+# (the serve preset's edge factor; about 16k nodes and 0.23M directed edges
+# each, all in one shape cell) into SERVE_K blocks, served as one
+# lane-stacked batch by an engine warmed at SERVE_N nodes.
+SERVE_SCALE, SERVE_N, SERVE_K, SERVE_BURST = 14, 16384, 8, 8
 
 
 def log(msg: str) -> None:
@@ -1716,6 +1750,186 @@ CHECKPOINT_LINE = re.compile(
     r"checkpoint: boundary (\d+) \((\w+), (\d+) levels\) written in ([0-9.]+) s, (\d+) B")
 
 
+def phase_serve(tmp: str) -> dict:
+    """Phase 16 (module docstring): the serve engine's burst, admission,
+    /metrics and the serve CLI on the card.  Returns the launch counts of
+    the ``serve``, ``serve-pergraph`` and ``serve-cli`` paths."""
+    import numpy as np
+    import torch
+
+    import kaminpar_tpu_torch as kp
+    from kaminpar_tpu_torch.graph import generators
+    from kaminpar_tpu_torch.ops import lp_kernels
+    from kaminpar_tpu_torch.serve import CapacityError, PartitionEngine, QueueFullError
+    from kaminpar_tpu_torch.telemetry import capacity, prometheus
+    from kaminpar_tpu_torch.telemetry.trace import validate_chrome_trace
+    from kaminpar_tpu_torch.utils import Logger, OutputLevel, Timer, sync_stats
+
+    t_phase = time.perf_counter()
+    level = Logger.level
+    Logger.level = OutputLevel.QUIET
+    try:
+        t0 = time.perf_counter()
+        engine = PartitionEngine("serve", warm_ladder=(SERVE_N,), warm_ks=(SERVE_K,),
+                                 max_batch=SERVE_BURST)  # no device: cuda:0
+        engine.start()
+        warm_s = time.perf_counter() - t0
+        log(json.dumps(dict(phase="serve_warmup", wall_s=warm_s, report=engine.warmup_report,
+                            capacity_ceiling_bytes=engine._capacity_ceiling,
+                            device_kind=engine._device_kind)))
+        builds = sum(row.get("builds", 0) for row in engine.warmup_report)
+        if builds:
+            raise AssertionError(f"the engine's warmup built kernels ({builds} builds)")
+        graphs = [generators.rmat_graph(SERVE_SCALE, 8, seed=100 + i)
+                  for i in range(SERVE_BURST)]
+        engine.pause()
+        futures = [engine.submit(g, SERVE_K, EPSILON) for g in graphs]
+        lp_kernels.reset_launches()
+        sync_stats.reset()
+        Timer.reset_global()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.resume()
+        results = [f.result(timeout=600) for f in futures]
+        burst_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stacked_launches = dict(lp_kernels.LAUNCHES)
+        stacked_timer = Timer.global_().paths(TIMER_DEPTH + 1)
+        sync = sync_stats.snapshot()["phases"]
+        stats = engine.stats()
+        lanes_phases = {ph: row for ph, row in sync.items() if ph.startswith("lanestack")
+                        or ph == "serve_lanestack"}
+        stacked_pulls = sum(row["stacked_count"] for row in lanes_phases.values())
+        lane_pulls = sum(row["lane_pulls"] for row in lanes_phases.values())
+        pred = capacity.predict_for_graph(graphs[0], SERVE_K, lanes=SERVE_BURST,
+                                          device_kind=engine._device_kind)
+        metrics_text = engine.metrics_text()
+        families = prometheus.validate(metrics_text)
+        breakers = engine.breakers.snapshot()
+        engine.shutdown()
+
+        # the sequential reference runs on the card
+        lp_kernels.reset_launches()
+        sync_stats.reset()
+        seq_walls, equal, seq_phase_s = [], [], collections.Counter()
+        for g, res in zip(graphs, results):
+            solver = kp.KaMinPar("serve")  # no device: cuda:0
+            solver.set_graph(g)
+            t0 = time.perf_counter()
+            ref = solver.compute_partition(SERVE_K, EPSILON)
+            torch.cuda.synchronize()
+            seq_walls.append(time.perf_counter() - t0)
+            equal.append(bool(np.array_equal(ref, res.partition)))
+            seq_phase_s.update(solver.last_partitioner.phase_seconds)
+        seq_launches = dict(lp_kernels.LAUNCHES)
+        seq_pulls = sync_stats.snapshot()["count"]
+        info = dict(
+            phase="serve", graphs=f"rmat_graph({SERVE_SCALE}, 8, seed=100..{99 + SERVE_BURST})",
+            k=SERVE_K, requests=SERVE_BURST, burst_wall_s=burst_wall,
+            stacked_execute_s=max(r.execute_s for r in results) * SERVE_BURST,
+            sequential_walls_s=seq_walls, sequential_sum_s=sum(seq_walls),
+            stacked_timer=stacked_timer, sequential_phase_s=dict(seq_phase_s),
+            batch_sizes=[r.batch_size for r in results],
+            cuts=[r.cut for r in results], feasible=[r.feasible for r in results],
+            equal_to_sequential=equal, launches=stacked_launches,
+            sequential_launches=seq_launches,
+            stacked_pulls=stacked_pulls, lane_pulls=lane_pulls, sequential_pulls=seq_pulls,
+            lanestack_phases=lanes_phases,
+            latency_ms=stats["latency_ms"],
+            batch_occupancy_mean=stats["batch_occupancy_mean"],
+            lanestack_occupancy_mean=stats["lanestack_occupancy_mean"],
+            lanestacked_batches=stats["lanestacked_batches"],
+            lanestack_fallbacks=stats["lanestack_fallbacks"],
+            lanestack_splits=stats["lanestack_splits"],
+            peak_bytes=peak, peak_over_base_bytes=peak - base_bytes,
+            predicted_peak_bytes=pred.predicted_peak_bytes, prediction=pred.to_dict(),
+            metrics_families=len(families), breakers=breakers)
+        log(json.dumps(info, default=str))
+        if stats["lanestacked_batches"] != 1 or set(info["batch_sizes"]) != {SERVE_BURST}:
+            raise AssertionError("the burst did not run as one lane-stacked batch of "
+                                 f"{SERVE_BURST} lanes")
+        if stats["lanestack_fallbacks"] or breakers["demotions"] or any(
+                br["trips"] for br in breakers["breakers"].values()):
+            raise AssertionError(f"a fallback or a breaker trip in the burst: {breakers}")
+        if not all(info["feasible"]) or not all(equal):
+            raise AssertionError("a served partition is infeasible or differs from its "
+                                 "sequential run")
+        for name, counts in (("serve", stacked_launches), ("serve-pergraph", seq_launches)):
+            if counts["lp_rate"] <= 0 or counts["lp_commit"] <= 0:
+                raise AssertionError(f"kernels #1 and #3 did not run on the {name} path")
+
+        # admission: a full queue and the capacity preflight launch nothing
+        small = generators.rmat_graph(10, 8, seed=7)
+        lp_kernels.reset_launches()
+        full = PartitionEngine("serve", queue_bound=2, warm_ladder=(), warm_ks=())
+        full.start(warmup=False)
+        full.pause()
+        full.submit(small, SERVE_K)
+        full.submit(small, SERVE_K)
+        try:
+            full.submit(small, SERVE_K)
+            raise AssertionError("a third request entered a queue bounded at 2")
+        except QueueFullError as exc:
+            retry = exc.retry_after_s
+        full.shutdown(drain=False)
+        need = capacity.predict_for_graph(small, SERVE_K).predicted_peak_bytes
+        tight = PartitionEngine("serve", warm_ladder=(), warm_ks=(),
+                                capacity_ceiling_bytes=need - 1)
+        tight.start(warmup=False)
+        try:
+            tight.submit(small, SERVE_K)
+            raise AssertionError("a request above the capacity ceiling was admitted")
+        except CapacityError as exc:
+            cap_err = dict(predicted=exc.predicted_bytes, ceiling=exc.ceiling_bytes)
+        rejected = tight.stats()["rejected_capacity"]
+        tight.shutdown()
+        admission_launches = dict(lp_kernels.LAUNCHES)
+        log(json.dumps(dict(phase="serve_admission", retry_after_s=retry, capacity=cap_err,
+                            rejected_capacity=rejected, launches=admission_launches)))
+        if retry <= 0 or rejected != 1 or any(admission_launches.values()):
+            raise AssertionError("the admission rejections are wrong or launched a kernel")
+    finally:
+        Logger.level = level
+
+    # the serve CLI in a subprocess, on the card by default
+    root = os.path.dirname(os.path.abspath(__file__))
+    hook_dir = os.path.join(tmp, "serve_hook")
+    os.makedirs(hook_dir, exist_ok=True)
+    with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK)
+    launches_file = os.path.join(tmp, "serve_launches.json")
+    trace_file = os.path.join(tmp, "serve.trace.json")
+    env = dict(os.environ, CHIP_SMOKE_LAUNCHES=launches_file,
+               PYTHONPATH=os.pathsep.join([hook_dir, root]))
+    cmd = [sys.executable, "-m", "kaminpar_tpu_torch.serve", "--demo", "4", "--ladder",
+           "4096", "--warm-ks", "8", "--max-batch", "4", "--trace-out", trace_file]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the serve CLI failed:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    cli_stats = json.loads(res.stdout.strip().splitlines()[-1])
+    with open(trace_file) as f:
+        trace = validate_chrome_trace(json.load(f))
+    with open(launches_file) as f:
+        cli_launches = json.load(f)
+    log(json.dumps(dict(phase="serve_cli", rc=res.returncode, wall_s=wall,
+                        completed=cli_stats.get("completed"),
+                        lanestacked_batches=cli_stats.get("lanestacked_batches"),
+                        latency_ms=cli_stats.get("latency_ms"), trace=trace,
+                        launches=cli_launches)))
+    if cli_stats.get("completed") != 4 or cli_launches["lp_rate"] <= 0 \
+            or cli_launches["lp_commit"] <= 0:
+        raise AssertionError("the serve CLI did not serve its demo through the kernels")
+    log(json.dumps(dict(phase="serve_total", s=time.perf_counter() - t_phase)))
+    return {"serve": dict(launches=stacked_launches),
+            "serve-pergraph": dict(launches=seq_launches),
+            "serve-cli": dict(launches=cli_launches)}
+
+
 def phase_preemption(default_graph, default_part, k: int, eps: float, tmp: str) -> dict:
     """Phase 15: a default run of the CLI on phase 14's ParHIP file (in
     ``tmp``) killed by SIGTERM at its first uncoarsening boundary, with
@@ -2537,7 +2751,8 @@ def phase_small_reference():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
-                    help="RMAT scale (2^scale nodes) of the largek path")
+                    help="base RMAT scale (2^scale nodes): the largek path runs at "
+                    "scale minus LARGEK_SCALE_CUT, the other paths below it")
     ap.add_argument("--path-scale", type=int, metavar="S",
                     help="RMAT scale of the terapart path and of the dense kernels' "
                     "shapes (default: --scale minus 2)")
@@ -2652,13 +2867,15 @@ def main() -> int:
                                                  files_dir)
         torch.cuda.empty_cache()
         cli_paths.update(phase_preemption(small, default_part, K, EPSILON, files_dir))
+        torch.cuda.empty_cache()
+        cli_paths.update(phase_serve(files_dir))
     del default_part
     phase_pool(coarsest, device)
     torch.cuda.empty_cache()
     vinfo = phase_vcycle_path(small, K, EPSILON, info["cut"])
     torch.cuda.empty_cache()
 
-    graph = rmat(args.scale)
+    graph = rmat(args.scale - LARGEK_SCALE_CUT)
     linfo, lpart, lcaps = phase_largek_path(graph, LARGE_K, EPSILON)
     torch.cuda.empty_cache()
     work = finest_graph(graph, LARGE_K, device)

@@ -51,6 +51,21 @@ class LPClustering:
         self.weighted_graph = weighted_graph
         self.last_num_moved = None
 
+    @staticmethod
+    def sweep_plan(ctx: LabelPropagationContext, graph, weighted_graph: bool):
+        """(sweeps, active_prob) of one clustering of ``graph``."""
+        iters = ctx.num_iterations
+        active_prob = ctx.active_prob
+        if weighted_graph:
+            # Weighted graphs: a small active fraction and more sweeps
+            # emulate asynchronous growth across light-edge valleys.
+            active_prob = min(active_prob, ctx.weighted_active_prob)
+            iters *= max(ctx.weighted_sweep_factor, 1)
+        elif graph.n > 0 and graph.m / graph.n < ctx.low_degree_boost_threshold:
+            # sparse graphs propagate one hop per sweep: sweep longer
+            iters *= max(ctx.low_degree_boost_factor, 1)
+        return iters, active_prob
+
     def compute_clustering(self, graph, max_cluster_weight: int) -> torch.Tensor:
         """Padded (n_pad,) cluster labels; pad nodes carry the anchor label
         (after an overlay, the pads' smallest member's)."""
@@ -79,16 +94,7 @@ class LPClustering:
         # a scalar cap: the clustering weight limit is uniform
         max_w = torch.full((), int(max_cluster_weight), dtype=torch.int32, device=dev)
 
-        iters = self.ctx.num_iterations
-        active_prob = self.ctx.active_prob
-        if self.weighted_graph:
-            # Weighted graphs: a small active fraction and more sweeps
-            # emulate asynchronous growth across light-edge valleys.
-            active_prob = min(active_prob, self.ctx.weighted_active_prob)
-            iters *= max(self.ctx.weighted_sweep_factor, 1)
-        elif graph.n > 0 and graph.m / graph.n < self.ctx.low_degree_boost_threshold:
-            # sparse graphs propagate one hop per sweep: sweep longer
-            iters *= max(self.ctx.low_degree_boost_factor, 1)
+        iters, active_prob = self.sweep_plan(self.ctx, graph, self.weighted_graph)
         gen = RandomState.generator(dev)
         # The "execute" fault-injection point of the LP kernels' dispatch,
         # under the JAX package's site string.  An injected fault stops the

@@ -9,8 +9,10 @@ kernels on a CUDA tensor and their plain PyTorch versions on a CPU tensor
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -278,10 +280,121 @@ class DebugContext:
 
 
 @dataclass
+class ServeContext:
+    """Knobs of the partition-serving runtime (``serve/``), the JAX
+    package's fields and defaults.
+
+    A ``PartitionEngine`` owns one long-lived device context: it warms
+    every cell of the ``warm_ladder`` x ``warm_ks`` grid at startup (runs
+    it once, so the kernels are loaded and the allocator's segments exist),
+    and serves a bounded queue with admission control, deadlines and
+    micro-batches of same-shape-cell requests."""
+
+    # Node-count rungs to warm at startup (each rung runs one synthetic
+    # partition, which visits its whole padded bucket chain).
+    warm_ladder: tuple = (256, 1024)
+    # k values to warm per rung.
+    warm_ks: tuple = (8,)
+    # Edge factor of the synthetic (RMAT) warmup graphs.
+    warm_edge_factor: int = 8
+    # Max requests fused into one micro-batch (same (n-bucket, m-bucket, k)
+    # shape cell only; see serve/batching.py).
+    max_batch: int = 8
+    # Admission bound of the request queue; submits beyond it are rejected
+    # with a retry-after estimate (backpressure) instead of queueing without
+    # limit.
+    queue_bound: int = 64
+    # After the first request of a batch arrives, wait up to this long for
+    # more same-cell requests before dispatching the batch.
+    batch_window_ms: float = 2.0
+    # Default per-request deadline; 0 disables (requests wait forever).
+    default_deadline_ms: float = 0.0
+    # Graceful-shutdown budget: how long shutdown(drain=True) waits for the
+    # queue to empty before giving up on the dispatcher thread.
+    drain_timeout_s: float = 60.0
+    # Lane-stacked batch execution: run a
+    # whole same-cell micro-batch through the multilevel pipeline as ONE
+    # lane-stacked union (the kernels run over all lanes at once) instead of
+    # once per graph.  "auto" lane-stacks
+    # eligible batches of >= 2 requests; "on" additionally stacks
+    # single-request batches (and makes fallbacks warn); "off" keeps the
+    # per-graph loop.  KAMINPAR_TPU_LANE_STACK overrides.
+    lane_stack: str = "auto"
+    # Lane counts to warm the lane-stacked pipeline at per (rung, k) cell
+    # during startup warmup (kind="lanestack" warmup-report rows); empty
+    # disables the pass (the per-graph warmup stays as is).
+    warm_lanes: tuple = ()
+    # Device-memory admission preflight: "auto"
+    # rejects a request whose predicted watermark exceeds the engine's
+    # ceiling when a ceiling is known (explicit override below, measured
+    # allocator limit, or the device-kind table — CPU without allocator
+    # stats has none, so "auto" passes everything there); "off" disables.
+    capacity_preflight: str = "auto"
+    # Explicit admission ceiling in bytes; 0 = derive (allocator bytes_limit
+    # when the backend exposes one, else the per-device-kind memory table at
+    # the planner's headroom).  Tests pin small values to force rejection.
+    capacity_ceiling_bytes: int = 0
+    # Crash-safe serve journal: append-only
+    # JSONL path ("" = off; env KPTPU_SERVE_JOURNAL overrides).  Every
+    # admitted request is journaled at admit (graph payload + params) and
+    # again at resolution; a restarted engine replays unresolved entries
+    # idempotently — restart mid-burst loses zero accepted requests — and
+    # restores the warm state (warmup report, warm cells, breaker trips,
+    # EMA seed) recorded alongside, so the replacement skips warmup.
+    journal_path: str = ""
+    # fsync the journal every N appended records (durability against latency;
+    # the un-fsynced suffix is the crash-loss window).  Resolutions and
+    # the warm-state record force an fsync regardless.
+    journal_fsync_every: int = 8
+    # -- SLO objectives ------------------------
+    # Declared service objectives; ALL default off (0.0), which disables
+    # burn-rate accounting entirely.  When any is armed the engine keeps
+    # rolling multi-window error budgets (slo_windows_s), exposes them in
+    # stats()["slo"] + kaminpar_slo_* Prometheus families, and exports a
+    # dimensionless pressure signal max(0, worst_burn - 1) that the fleet
+    # steering score and the autoscaler consume.  Pressure is a control
+    # input only — it never reaches the partitioning math, so partitions
+    # stay bit-identical with SLOs armed or off (asserted in tests).
+    #
+    # Per-quality-tier latency targets in milliseconds (queue wait +
+    # execute, i.e. the caller-observed service path of a completed
+    # request); a completed request over its tier's target spends latency
+    # error budget (budget = 1 - slo_availability, or 1% when no
+    # availability objective is set).
+    slo_strong_ms: float = 0.0
+    slo_fast_ms: float = 0.0
+    # Availability target as a fraction (e.g. 0.999): failed/expired
+    # requests spend the (1 - target) error budget.
+    slo_availability: float = 0.0
+    # Tolerated capacity-reject rate as a fraction of submissions (e.g.
+    # 0.01): typed CapacityError rejections beyond it burn budget.
+    slo_capacity_reject_rate: float = 0.0
+    # Rolling evaluation windows in seconds (fast burn / slow burn pair).
+    slo_windows_s: tuple = (60.0, 600.0)
+
+
+@dataclass
 class ResilienceContext:
-    """Checkpoint knobs of the resilience layer (``resilience/``), the JAX
-    package's names and defaults (disarmed).  Its fault-plan, breaker and
-    watchdog fields come with the serve engine, which reads them."""
+    """Knobs of the resilience layer (``resilience/``), the JAX package's
+    names and defaults: all disarmed, breakers at the documented
+    threshold and cooldown."""
+
+    # Fault plan a serve engine arms at start (resilience/faults.py syntax
+    # "point[@site]:error[:key=val ...]", comma-separated; "" = disarmed).
+    # KPTPU_FAULTS (with KPTPU_FAULTS_SEED) arms every process instead.
+    fault_plan: str = ""
+    fault_seed: int = 0
+    # Consecutive failures that open a (path, cell) breaker of a serve
+    # engine, and how long it stays open before the half-open probe.
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    # Watchdog deadlines of a serve engine (resilience/watchdog.py); 0
+    # disables.  A batch overrunning execute_timeout_s has its futures
+    # rejected with ExecuteFault and its cell breaker tripped.
+    execute_timeout_s: float = 0.0
+    compile_timeout_s: float = 0.0
+    # JSONL file of watchdog dossiers ("" = in memory only).
+    dossier_path: str = ""
 
     # Directory of the deep pipeline's level-boundary checkpoints
     # (resilience/checkpoint.py; "" = disarmed, KPTPU_CHECKPOINT arms every
@@ -293,6 +406,65 @@ class ResilienceContext:
     checkpoint_every_levels: int = 1
     # Keep every boundary's file instead of the latest only.
     checkpoint_keep_all: bool = False
+
+
+_tls_runtime = threading.local()
+
+
+@dataclass(frozen=True)
+class EngineRuntime:
+    """What a serve engine owns of its runs: its device and its sync-timer
+    flag, made current on a thread (a stack, so nested runs and several
+    engines' dispatcher threads stay apart) around every pipeline run
+    (counterpart of the JAX package's ``EngineRuntime``).
+
+    On activation a CUDA device becomes the thread's current device
+    (kernel launches and allocations of the run land on it), and
+    ``utils/timer.scoped_timer(..., sync=True)`` waits per this runtime's
+    flag instead of the process default.  The JAX package's runtime also
+    owns a persistent compilation-cache directory and a layout-build mode;
+    torch compiles nothing per shape and the port builds its layouts one way,
+    so this runtime has neither."""
+
+    device: str = "cpu"
+    sync_timers: bool = False
+
+    @contextlib.contextmanager
+    def activate(self):
+        import torch
+
+        stack = getattr(_tls_runtime, "stack", None)
+        if stack is None:
+            stack = _tls_runtime.stack = []
+        dev = torch.device(self.device)
+        stack.append(self)
+        try:
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                yield self
+        finally:
+            stack.pop()
+
+
+def current_runtime() -> Optional[EngineRuntime]:
+    """This thread's innermost active runtime, or None."""
+    stack = getattr(_tls_runtime, "stack", None)
+    return stack[-1] if stack else None
+
+
+def propagate_runtime(fn):
+    """Wrap a pool worker so that the submitting thread's active runtime is
+    active inside it too (activation is thread-local); ``fn`` itself
+    outside any activation."""
+    rt = current_runtime()
+    if rt is None:
+        return fn
+
+    def _wrapped(*args, **kwargs):
+        with rt.activate():
+            return fn(*args, **kwargs)
+
+    return _wrapped
 
 
 @dataclass
@@ -308,6 +480,7 @@ class Context:
     compression: GraphCompressionContext = field(default_factory=GraphCompressionContext)
     debug: DebugContext = field(default_factory=DebugContext)
     resilience: ResilienceContext = field(default_factory=ResilienceContext)
+    serve: ServeContext = field(default_factory=ServeContext)
     seed: int = 0
     # v-cycle mode: the intermediate k values partitioned before the final k.
     vcycles: tuple = ()
@@ -321,9 +494,11 @@ class Context:
 
 __all__ = [
     "BalancerContext", "ClusterWeightLimit", "ClusteringAlgorithm",
-    "CoarseningContext", "ColoredLPContext", "Context", "DebugContext", "FMContext",
+    "CoarseningContext", "ColoredLPContext", "Context", "DebugContext", "EngineRuntime",
+    "FMContext",
     "GraphCompressionContext", "InitialPartitioningContext", "JetContext",
     "LabelPropagationContext", "PartitionContext", "PartitioningMode",
-    "RefinementAlgorithm", "RefinementContext", "ResilienceContext", "SparsificationContext",
+    "RefinementAlgorithm", "RefinementContext", "ResilienceContext", "ServeContext",
+    "SparsificationContext",
     "TieBreakingStrategy",
 ]

@@ -20,6 +20,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +61,7 @@ def build() -> Path:
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_name(f"{so_path.name}.tmp{os.getpid()}.{threading.get_ident()}")
+    t0 = time.perf_counter()
     try:
         res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
                              capture_output=True, text=True, timeout=300)
@@ -69,6 +71,9 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed on {SRC.name}:\n{res.stderr}")
     os.replace(tmp, so_path)  # atomic against concurrent builds
+    from ..utils import compile_stats
+
+    compile_stats.record_build("g++", time.perf_counter() - t0)
     return so_path
 
 

@@ -46,6 +46,34 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def strip_to_work_graph(graph: CSRGraph, k: int, device):
+    """The facade's work graph on ``device``: ``graph`` without its
+    isolated nodes (``graph/isolated.strip_isolated_csr``), built from the
+    host arrays of one readback.  Returns ``(work_graph, stripped,
+    node_w)``: ``stripped`` is the strip's (keep, isolated, row_ptr,
+    col_idx, node_w) or None, ``node_w`` the whole graph's host node
+    weights, both for :func:`reinsert_isolated`."""
+    row_ptr = graph.host_row_ptr()
+    col_idx, node_w, edge_w = sync_stats.pull(graph.col_idx, graph.node_w, graph.edge_w)
+    stripped = strip_isolated_csr(row_ptr, lambda: col_idx, node_w, graph.n, k)
+    if stripped is not None:
+        _, isolated, new_rp, new_col, new_nw = stripped
+        Logger.log(f"Removed {len(isolated)} isolated nodes")
+        return from_numpy_csr(new_rp, new_col, new_nw, edge_w, device=device), stripped, node_w
+    return from_numpy_csr(row_ptr, col_idx, node_w, edge_w, device=device), None, node_w
+
+
+def reinsert_isolated(n: int, k: int, stripped, work_part: np.ndarray, node_w: np.ndarray,
+                      max_bw: np.ndarray) -> np.ndarray:
+    """The whole graph's (n,) int32 partition from the work graph's: the
+    isolated nodes go to the lightest blocks."""
+    if stripped is None:
+        return work_part
+    keep, isolated, _, _, new_nw = stripped
+    return assign_isolated_nodes(n, k, keep, isolated, work_part, new_nw, node_w,
+                                 max_bw).astype(np.int32)
+
+
 class KaMinPar:
     """Usage::
 
@@ -55,11 +83,17 @@ class KaMinPar:
         partition = solver.compute_partition(k=16, epsilon=0.03)
     """
 
-    def __init__(self, ctx_or_preset: Union[Context, str] = "default", device=None):
+    def __init__(self, ctx_or_preset: Union[Context, str] = "default", device=None,
+                 engine=None):
         if isinstance(ctx_or_preset, str):
             ctx_or_preset = create_context_by_preset_name(ctx_or_preset)
         self.ctx = ctx_or_preset
-        self.device = resolve_device(device)
+        # An optional warm serving engine (serve/engine.py):
+        # compute_partition delegates to it instead of running the pipeline
+        # in this process's thread.
+        self._engine = engine
+        self.device = engine.device if engine is not None and device is None \
+            else resolve_device(device)
         self.graph: Optional[CSRGraph] = None
         self.compressed_graph: Optional[CompressedGraph] = None
         self._last: Optional[PartitionedGraph] = None
@@ -86,6 +120,13 @@ class KaMinPar:
         self.set_graph(from_numpy_csr(row_ptr, col_idx, node_weights, edge_weights,
                                       validate_input=True))
 
+    def set_engine(self, engine) -> None:
+        """Attach (or with None detach) a warm ``serve.PartitionEngine``;
+        later ``compute_partition`` calls are served by it (its context
+        governs the pipeline; the results equal a direct run under the same
+        context bit for bit)."""
+        self._engine = engine
+
     def compute_partition(self, k: int, epsilon: float = 0.03,
                           max_block_weights: Optional[Sequence[int]] = None,
                           min_epsilon: float = 0.0,
@@ -106,6 +147,14 @@ class KaMinPar:
         per block when ``min_epsilon`` > 0, or the absolute
         ``min_block_weights``; the underload balancer enforces it.
         """
+        if self._engine is not None and self.graph is not None and resume is None:
+            # Delegation to the warm engine: its dispatcher runs the same
+            # facade path on its own context, so this facade's state
+            # (weighted-mode pin, last partition) is untouched.  Compressed
+            # inputs and resumes stay in this process.
+            return self._engine.partition(
+                self.graph, k, epsilon, max_block_weights=max_block_weights,
+                min_epsilon=min_epsilon, min_block_weights=min_block_weights)
         graph = self.graph if self.graph is not None else self.compressed_graph
         if graph is None:
             raise ValueError("call set_graph or copy_graph first")
@@ -185,16 +234,7 @@ class KaMinPar:
         # Strip isolated nodes on the host; they go to the lightest blocks
         # afterwards.  The work graph is held to the whole graph's minimum
         # block weights.
-        row_ptr = graph.host_row_ptr()
-        col_idx, node_w, edge_w = sync_stats.pull(graph.col_idx, graph.node_w, graph.edge_w)
-        stripped = strip_isolated_csr(row_ptr, lambda: col_idx, node_w, graph.n, k)
-        if stripped is not None:
-            keep, isolated, new_rp, new_col, new_nw = stripped
-            work_graph = from_numpy_csr(new_rp, new_col, new_nw, edge_w,
-                                        device=self.device)
-            Logger.log(f"Removed {len(isolated)} isolated nodes")
-        else:
-            work_graph = from_numpy_csr(row_ptr, col_idx, node_w, edge_w, device=self.device)
+        work_graph, stripped, node_w = strip_to_work_graph(graph, k, self.device)
 
         partitioner = create_partitioner(ctx, work_graph)
         if ctx.mode == PartitioningMode.DEEP:
@@ -213,12 +253,7 @@ class KaMinPar:
         work_part = sync_stats.pull(p_graph.partition).astype(np.int32)
         # Isolated nodes carry no edges: the work graph's cut is the cut.
         cut = p_graph.edge_cut()
-        if stripped is not None:
-            part = assign_isolated_nodes(
-                graph.n, k, keep, isolated, work_part, new_nw, node_w, max_bw
-            ).astype(np.int32)
-        else:
-            part = work_part
+        part = reinsert_isolated(graph.n, k, stripped, work_part, node_w, max_bw)
         self._last = PartitionedGraph.create(graph, k, part, max_bw, min_bw)
         if stripped is not None and not self._last.is_min_feasible():
             # The work graph was held to minimums its own weight may not

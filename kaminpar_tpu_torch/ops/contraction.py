@@ -20,6 +20,8 @@ pure-padding cluster, always the last coarse id, which is dropped.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..graph.csr import CSRGraph
@@ -38,6 +40,29 @@ def _contract_core(labels, edge_u, col_idx, edge_w, node_w, extra=()):
     readback of a contraction is a packed (n_c, m_c, max node weight,
     total edge weight, *extra) tensor; every other step keeps its sizes on
     the device or takes them from that readback."""
+    pre = contract_device(labels, edge_u, col_idx, edge_w, node_w, extra)
+    return contract_finish(pre, sync_stats.pull(pre.stats))
+
+
+class ContractPre(NamedTuple):
+    """The device half of a contraction, up to its one readback: ``stats``
+    is the packed (n_c, m_c, max node weight, total edge weight, *extra)
+    int64 tensor that :func:`contract_finish` needs on the host."""
+
+    coarse_of: torch.Tensor
+    c_node_w: torch.Tensor
+    su: torch.Tensor
+    sv: torch.Tensor
+    rid: torch.Tensor
+    run_w: torch.Tensor
+    valid: torch.Tensor
+    row_ptr: torch.Tensor
+    stats: torch.Tensor
+
+
+def contract_device(labels, edge_u, col_idx, edge_w, node_w, extra=()) -> ContractPre:
+    """Steps 1-3 of the contraction on the device, no readback.  A
+    lane-stacked caller stacks several lanes' ``stats`` into one pull."""
     n = int(labels.shape[0])
     m = int(col_idx.shape[0])
     dev = labels.device
@@ -72,13 +97,21 @@ def _contract_core(labels, edge_u, col_idx, edge_w, node_w, extra=()):
     stats = torch.stack([present.sum(dtype=torch.int64), valid.sum(dtype=torch.int64),
                          c_node_w.max().to(torch.int64), sw.sum(dtype=torch.int64),
                          *(torch.as_tensor(x, device=dev).to(torch.int64) for x in extra)])
-    n_c, m_c, max_node_w, total_edge_w, *extra_host = (int(x) for x in sync_stats.pull(stats))
-    slot = torch.where(valid, rid.to(torch.int64), torch.full_like(su, m_c))
+    return ContractPre(coarse_of, c_node_w, su, sv, rid, run_w, valid, row_ptr, stats)
+
+
+def contract_finish(pre: ContractPre, stats_host):
+    """Step 4, the compaction, from the host values of ``pre.stats``;
+    returns :func:`_contract_core`'s tuple."""
+    n_c, m_c, max_node_w, total_edge_w, *extra_host = (int(x) for x in stats_host)
+    su, sv = pre.su, pre.sv
+    dev = su.device
+    slot = torch.where(pre.valid, pre.rid.to(torch.int64), torch.full_like(su, m_c))
     out_u = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, su)
     out_v = torch.zeros(m_c + 1, dtype=torch.int64, device=dev).scatter_(0, slot, sv)
-    out_w = run_w[:m_c]
-    return (coarse_of, n_c, c_node_w, out_u[:m_c].to(torch.int32),
-            out_v[:m_c].to(torch.int32), out_w, row_ptr, max_node_w, total_edge_w,
+    out_w = pre.run_w[:m_c]
+    return (pre.coarse_of, n_c, pre.c_node_w, out_u[:m_c].to(torch.int32),
+            out_v[:m_c].to(torch.int32), out_w, pre.row_ptr, max_node_w, total_edge_w,
             tuple(extra_host))
 
 

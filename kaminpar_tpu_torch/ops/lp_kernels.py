@@ -141,6 +141,9 @@ def build() -> Path:
         os.replace(tmp_lib, lib_path)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["log"] = "\n".join(logs)
+    from ..utils import compile_stats
+
+    compile_stats.record_build("nvcc", BUILD_INFO["seconds"])
     return lib_path
 
 

@@ -1,8 +1,8 @@
 """Named presets (as in ``kaminpar_tpu/presets.py``): of the deep scheme
 ``default``, ``fast``, ``eco``, ``eco-devext``, ``strong``, ``jet``,
-``4xjet``, ``noref``, the largek and terapart variants and the rename
-aliases ``fm``, ``flow`` and ``esa21-*``; of the other schemes ``kway``
-(alias ``mtkahypar-kway``), ``linear-time-kway``, ``vcycle`` and
+``4xjet``, ``noref``, ``serve``, the largek and terapart variants and the
+rename aliases ``fm``, ``flow`` and ``esa21-*``; of the other schemes
+``kway`` (alias ``mtkahypar-kway``), ``linear-time-kway``, ``vcycle`` and
 ``restricted-vcycle``."""
 
 from __future__ import annotations
@@ -203,6 +203,19 @@ def create_vcycle_context(restricted: bool = False) -> Context:
     return ctx
 
 
+def create_serve_context() -> Context:
+    """The serve engine's preset (``serve/``): the fast preset's budgets,
+    which bound each request's latency; its warmup and batch knobs are in
+    ``ctx.serve``.  On a CUDA device every bisection runs on the device
+    pool (``ip_backend`` "auto")."""
+    ctx = _apply_fast_delta(create_default_context())
+    ctx.preset_name = "serve"
+    ctx.serve.max_batch = 8
+    ctx.serve.queue_bound = 64
+    ctx.initial_partitioning.ip_backend = "auto"
+    return ctx
+
+
 _PRESETS = {
     "default": create_default_context,
     "fast": create_fast_context,
@@ -231,6 +244,7 @@ _PRESETS = {
     "linear-time-kway": create_linear_time_kway_context,
     "vcycle": create_vcycle_context,
     "restricted-vcycle": lambda: create_vcycle_context(True),
+    "serve": create_serve_context,
 }
 
 

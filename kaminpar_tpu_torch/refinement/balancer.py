@@ -104,14 +104,31 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
     mode of device extension: the lightest-block fallback stays inside the
     mover's group.  Rated targets are already in-group when the caller has
     masked the cross-group edge weights."""
-    zero = torch.zeros((), dtype=torch.int32, device=labels.device)
     block_weights = segment_sum(node_w, labels, k)
     target, tconn, oconn, has = bucketed_best_moves(
         labels, bv, node_w, block_weights, max_bw, draws.ties, draws.heavy_tie,
         external_only=True, respect_caps=True,
     )
+    new_labels, commit = _balance_commit(labels, target, tconn, oconn, has, block_weights,
+                                         node_w, max_bw, draws.jitter, k=k,
+                                         group_of=group_of)
+    still = (segment_sum(node_w, new_labels, k) > max_bw).any()
+    flags = torch.stack([commit.sum(dtype=torch.int32), still.to(torch.int32)])
+    return new_labels, flags
+
+
+def _balance_commit(labels, target, tconn, oconn, has, block_weights, node_w, max_bw,
+                    jitter, *, k: int, group_of=None, movable=None):
+    """The round after the rating: the lightest-block fallback, admission
+    at the sources and the targets; returns ``(new_labels, commit)``.
+    ``movable`` (optional (n,) bool) freezes the nodes outside it: the
+    lane-stacked round (``ops/lanestack.py``) freezes the lanes whose
+    round loop has ended."""
+    zero = torch.zeros((), dtype=torch.int32, device=labels.device)
     overloaded = block_weights > max_bw
     mover = overloaded[labels] & (node_w > 0)  # weight-0 nodes are padding
+    if movable is not None:
+        mover = mover & movable
 
     # Movers without a feasible adjacent target fall back to the lightest
     # block (of their group).
@@ -131,7 +148,7 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
     target = torch.where(use_fb, light, target)
     tconn = torch.where(use_fb, zero, tconn)
     eligible = mover & (has | use_fb)
-    rel = _relative_gain(tconn, oconn, node_w, draws.jitter)
+    rel = _relative_gain(tconn, oconn, node_w, jitter)
 
     overload = torch.clamp(block_weights - max_bw, min=0)
     src_ok = _admit_by_budget(eligible, labels, rel, node_w, overload, k, inclusive=False)
@@ -140,10 +157,7 @@ def _balance_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw
                               torch.clamp(max_bw - block_weights, min=0), k,
                               inclusive=True)
     commit = admitted & tgt_ok
-    new_labels = torch.where(commit, target, labels)
-    still = (segment_sum(node_w, new_labels, k) > max_bw).any()
-    flags = torch.stack([commit.sum(dtype=torch.int32), still.to(torch.int32)])
-    return new_labels, flags
+    return torch.where(commit, target, labels), commit
 
 
 def _underload_round(labels, draws: BalanceDraws, bv: BucketedView, node_w, max_bw,

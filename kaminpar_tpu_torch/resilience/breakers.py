@@ -346,3 +346,57 @@ def global_registry() -> BreakerRegistry:
 def reset_global_registry() -> None:
     with _global_lock:
         _global[0] = None
+
+
+def prometheus_families(*registries, prefix: str = "kaminpar_resilience") -> list:
+    """Breaker and demotion metric families for ``telemetry/prometheus.render``,
+    merged over the given registries (the engine passes its own and the
+    process-global one)."""
+    state_samples, trip_samples = [], []
+    demo_samples, restore_samples = [], []
+    state_code = {"closed": 0, "open": 1, "half-open": 2}
+    merged_demo: Dict[str, int] = {}
+    merged_restore: Dict[str, int] = {}
+    for reg in registries:
+        snap = reg.snapshot()
+        scope = snap.get("scope", "engine")
+        for name, br in snap["breakers"].items():
+            path, _, cell = name.partition("|")
+            labels = {"path": path, "cell": cell, "scope": scope}
+            state_samples.append((labels, state_code.get(br["state"], -1)))
+            trip_samples.append((labels, br["trips"]))
+        for path, count in snap["demotions"].items():
+            merged_demo[path] = merged_demo.get(path, 0) + count
+        for path, count in snap["restorations"].items():
+            merged_restore[path] = merged_restore.get(path, 0) + count
+    for path, count in sorted(merged_demo.items()):
+        demo_samples.append(
+            ({"path": path, "fallback": LADDER.get(path, "fallback")}, count)
+        )
+    for path, count in sorted(merged_restore.items()):
+        restore_samples.append(({"path": path}, count))
+    from . import faults
+
+    inj = faults.snapshot()
+    inj_samples = [
+        ({"point": pt}, row["injected"]) for pt, row in inj["points"].items()
+    ] or [({}, 0)]
+    return [
+        (f"{prefix}_breaker_state", "gauge",
+         "Circuit breaker state per (path, cell): 0 closed, 1 open, "
+         "2 half-open",
+         state_samples or [({}, None)]),
+        (f"{prefix}_breaker_trips_total", "counter",
+         "Times each (path, cell) breaker opened",
+         trip_samples or [({}, 0)]),
+        (f"{prefix}_demotions_total", "counter",
+         "Degradation-ladder demotions by rung (see the README ladder "
+         "table; reversed by half-open probing)",
+         demo_samples or [({}, 0)]),
+        (f"{prefix}_restorations_total", "counter",
+         "Half-open probes that restored a primary path",
+         restore_samples or [({}, 0)]),
+        (f"{prefix}_faults_injected_total", "counter",
+         "Chaos-harness fault injections by point (zero in production)",
+         inj_samples),
+    ]

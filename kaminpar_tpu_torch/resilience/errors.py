@@ -22,17 +22,19 @@ no visible device, a failed CUDA init,      ``BackendUnavailable``
 site (elsewhere: ``ExecuteFault``)
 ==========================================  ======================
 
-The JAX package also passes the serve tier's admission errors (queue full,
-deadline, cancelled, engine stopped) through untouched, and tells them
-apart with ``is_control_flow``; both come with the port's serve tier,
-which does not exist yet.
+The serve tier's admission errors (queue full, deadline, cancelled, engine
+stopped; ``serve/errors.py``) are control flow, not faults: the classifier
+wraps one that reaches it anyway as an ``ExecuteFault`` with the original
+chained, and :func:`is_control_flow` tells them apart so dispatch sites
+re-raise them untouched.  The admission preflight's ``CapacityError`` is
+classified as ``CapacityExceeded``.
 
 Pure stdlib: the classifier must work when torch itself is what broke.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class ResilienceError(RuntimeError):
@@ -135,16 +137,47 @@ def _is_cuda_oom(exc: BaseException) -> bool:
                for cls in type(exc).__mro__)
 
 
+def _passthrough(exc: BaseException) -> Optional[BaseException]:
+    """Typed errors and the serve tier's control-flow outcomes."""
+    if isinstance(exc, ResilienceError):
+        return exc
+    try:
+        from ..serve import errors as serve_errors
+    except Exception:  # noqa: BLE001 - the classifier works without the serve tier
+        return None
+    if isinstance(exc, (serve_errors.QueueFullError, serve_errors.DeadlineExceededError,
+                        serve_errors.RequestCancelledError,
+                        serve_errors.EngineStoppedError)):
+        return exc
+    return None
+
+
+def _is_capacity_preflight(exc: BaseException) -> bool:
+    try:
+        from ..serve.errors import CapacityError
+    except Exception:  # noqa: BLE001
+        return False
+    return isinstance(exc, CapacityError)
+
+
 def classify(exc: BaseException, site: str = "") -> ResilienceError:
     """Map an exception to exactly one typed failure class (see the module
     table).  Idempotent on typed errors; the original exception is chained
     as ``__cause__``."""
-    if isinstance(exc, ResilienceError):
-        return exc
+    hit = _passthrough(exc)
+    if isinstance(hit, ResilienceError):
+        return hit
+    if hit is not None:
+        # a control-flow serve error reached the classifier: the caller
+        # still gets a typed error (callers should re-raise these instead,
+        # see is_control_flow)
+        err = ExecuteFault(f"{type(exc).__name__}: {exc}", site=site)
+        err.__cause__ = exc
+        return err
     msg = str(exc).lower()
     name = type(exc).__name__
     out: ResilienceError
-    if _is_cuda_oom(exc) or isinstance(exc, MemoryError) or any(
+    if _is_capacity_preflight(exc) or _is_cuda_oom(exc) or isinstance(exc, MemoryError) or any(
         m in msg for m in _CAPACITY_MARKERS
     ):
         out = CapacityExceeded(f"{name}: {exc}", site=site)
@@ -162,3 +195,11 @@ def classify(exc: BaseException, site: str = "") -> ResilienceError:
         out = ExecuteFault(f"{name}: {exc}", site=site)
     out.__cause__ = exc
     return out
+
+
+def is_control_flow(exc: BaseException) -> bool:
+    """True for the serve tier's admission and lifecycle outcomes (queue
+    full, deadline, cancelled, engine stopped), which dispatch sites
+    re-raise untouched instead of classifying as faults."""
+    hit = _passthrough(exc)
+    return hit is not None and not isinstance(hit, ResilienceError)

@@ -185,6 +185,19 @@ def _coin(seed: int, spec_idx: int, hit: int, p: float) -> bool:
     return int.from_bytes(digest, "big") / float(1 << 64) < p
 
 
+def arm(plan: FaultPlan) -> None:
+    """Arm a plan process-wide (replacing any armed plan)."""
+    with _lock:
+        _armed[0] = plan
+        _env_checked[0] = True  # an explicit plan outranks the environment
+
+
+def disarm() -> None:
+    with _lock:
+        _armed[0] = None
+        _env_checked[0] = True
+
+
 def reset() -> None:
     """Disarm and zero the census (tests); re-enables env discovery."""
     with _lock:

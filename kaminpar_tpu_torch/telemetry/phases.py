@@ -55,6 +55,28 @@ AUX_PHASES = (
     # host arrays, host-to-device copies only (0 pulls, asserted).
     "checkpoint_write",
     "checkpoint_restore",
+    # The serve tier (serve/): the packed-batch metrics readback and the
+    # per-member CSR readbacks of batching.py; the lane-stacked execution
+    # (serve/lanestack.py) and its stacked readbacks, one pull serving
+    # every lane (lanestack_coarsening: the clustering rounds' moved
+    # counts, a level's contraction stats and its coarse row_ptrs;
+    # lanestack_refinement: the refinement rounds' flags and moved counts
+    # and the keep-best quality rows); the admission preflight (host arithmetic, no
+    # readback); the journal's admit records (one graph pull each) and its
+    # replay (host-to-device copies); the request traces and SLO burn
+    # rates (host work only).
+    "serve_batch_metrics",
+    "serve_pack",
+    "serve_lanestack",
+    "lanestack_coarsening",
+    "lanestack_ip",
+    "lanestack_refinement",
+    "lanestack_extend",
+    "capacity_preflight",
+    "journal_write",
+    "journal_replay",
+    "reqtrace_export",
+    "slo_eval",
 )
 
 KNOWN_PHASES = frozenset(CORE_PHASES + AUX_PHASES)

@@ -45,10 +45,12 @@ def contraction_level(*, n, m, n_c, m_c, max_node_weight, total_edge_weight) -> 
 
 def coarsening_level(*, level, n, m, n_c, m_c, max_cluster_weight,
                      max_node_weight, total_edge_weight,
-                     lp_moved=None, lp_rounds_budget=None) -> None:
+                     lp_moved=None, lp_rounds_budget=None,
+                     lane=None) -> None:
     """The coarsener's per-level quality row: sizes, shrink, the LP moved
-    count, all host values from the level's one batched readback (the JAX
-    package's ``lane`` tag comes with the serve tier)."""
+    count, all host values from the level's one batched readback.
+    ``lane`` tags the rows of one lane of a lane-stacked serve batch (the
+    stacked readback carries the same values per lane)."""
     rec = _rec()
     if rec is None:
         return
@@ -65,6 +67,8 @@ def coarsening_level(*, level, n, m, n_c, m_c, max_cluster_weight,
             int(lp_rounds_budget) if lp_rounds_budget is not None else None
         ),
     )
+    if lane is not None:
+        row["lane"] = int(lane)
     rec.quality_row("coarsening_level", **row)
 
 

@@ -79,6 +79,50 @@ class TraceRecorder:
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
 
+    def to_us(self, t_perf: float) -> float:
+        """A ``time.perf_counter()`` reading taken elsewhere on this trace's
+        clock (microseconds since the recorder started, at least 0); the
+        request-trace registry (``telemetry/reqtrace.py``) replays its
+        events onto lanes with it."""
+        return max(0.0, (float(t_perf) - self._t0) * 1e6)
+
+    def lane_tid(self, lane: str) -> int:
+        """tid of a synthetic lane row, named by ``thread_name`` metadata
+        like a thread's and fed by :meth:`lane_span` with explicit
+        timestamps.  Lane keys are strings, so they never collide with the
+        threads' integer idents."""
+        key = f"lane:{lane}"
+        tid = self._tids.get(key)
+        if tid is None:
+            with self._lock:
+                tid = self._tids.get(key)
+                if tid is None:
+                    tid = self._tids[key] = len(self._tids)
+                    self._events.append({
+                        "name": "thread_name", "ph": "M", "ts": 0.0,
+                        "pid": _PID, "tid": tid, "args": {"name": lane},
+                    })
+        return tid
+
+    def lane_span(self, lane: str, name: str, ts_begin_us: float,
+                  ts_end_us: float, **args) -> None:
+        """One closed span on a synthetic lane row with explicit
+        timestamps; its B/E pair is admitted or dropped as one, so the
+        event cap never orphans half a span."""
+        tid = self.lane_tid(lane)
+        t0 = float(ts_begin_us)
+        t1 = float(max(ts_end_us, ts_begin_us))
+        b = {"name": name, "ph": "B", "ts": t0, "pid": _PID, "tid": tid}
+        if args:
+            b["args"] = args
+        e = {"name": name, "ph": "E", "ts": t1, "pid": _PID, "tid": tid}
+        with self._lock:
+            if len(self._events) + 1 >= self.max_events:
+                self.dropped_events += 2
+                return
+            self._events.append(b)
+            self._events.append(e)
+
     def _tid(self) -> int:
         ident = threading.get_ident()
         tid = self._tids.get(ident)

@@ -247,9 +247,12 @@ def set_sync_mode(on: bool) -> None:
 
 
 def sync_mode() -> bool:
-    """The process default set by :func:`set_sync_mode` (the port has no
-    per-engine runtime yet)."""
-    return _sync_mode
+    """The active engine runtime's flag (``context.EngineRuntime``), else
+    the process default set by :func:`set_sync_mode`."""
+    from ..context import current_runtime
+
+    rt = current_runtime()
+    return rt.sync_timers if rt is not None else _sync_mode
 
 
 def _wait_for(t) -> None:

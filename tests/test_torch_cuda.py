@@ -1170,3 +1170,88 @@ def test_injected_fault_on_card_raises_typed_error(cuda):
                 _ckpt_solver(cuda).compute_partition(16)
     faults.reset()
     assert breakers.global_registry().demotions() == {}
+
+
+def _lane_graphs():
+    return [generators.rmat_graph(11, 8, seed=31), generators.grid2d_graph(40, 40),
+            generators.rgg2d_graph(2048, seed=5), make_graph("hub")]
+
+
+@pytest.mark.cuda
+def test_lane_union_round_equals_per_lane_rounds_on_card(cuda):
+    """One stacked LP round (kernel #1 over the union buckets, kernel #3
+    once, per-label cap tables) and one stacked balancer round equal the
+    lanes' own rounds on the same draws, for 4 lanes."""
+    from kaminpar_tpu_torch.ops import lanestack as lops
+
+    graphs = [g.to(cuda) for g in _lane_graphs()]
+    pvs = [g.padded() for g in graphs]
+    bvs = [g.bucketed() for g in graphs]
+    union = lops.lane_union(bvs, [pv.n_pad for pv in pvs])
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    caps = [40, 25, 60, 9000]
+    draws = [lp.draw_lp_round(gen, bv, pv.n_pad, active_prob=0.5) for bv, pv in zip(bvs, pvs)]
+    seq = []
+    for pv, bv, d, c in zip(pvs, bvs, draws, caps):
+        labels = torch.arange(pv.n_pad, dtype=torch.int32, device=cuda)
+        st = lp.lp_round_bucketed(lp.init_state(labels, pv.node_w, pv.n_pad), d, bv, pv.node_w,
+                                  torch.full((), c, dtype=torch.int32, device=cuda),
+                                  num_labels=pv.n_pad, active_prob=0.5)
+        seq.append(st)
+    off = union.node_off
+    labels = torch.cat([torch.arange(pv.n_pad, dtype=torch.int32, device=cuda) + off[j]
+                        for j, pv in enumerate(pvs)])
+    node_w = torch.cat([pv.node_w for pv in pvs])
+    max_w = torch.cat([torch.full((pv.n_pad,), c, dtype=torch.int32, device=cuda)
+                       for pv, c in zip(pvs, caps)])
+    lp_kernels.reset_launches()
+    st, moved = lops.lane_lp_round(union, lp.init_state(labels, node_w, union.N), draws, node_w,
+                                   max_w, num_labels=union.N, active_probs=[0.5] * 4)
+    if cuda.type == "cuda":  # (the functions also run on CPU tensors, uncounted)
+        assert lp_kernels.LAUNCHES["lp_commit"] == 1
+        assert lp_kernels.LAUNCHES["lp_rate"] == len(union.buckets)
+    for j, s in enumerate(seq):
+        assert torch.equal(st.labels[off[j]:off[j + 1]] - off[j], s.labels)
+        assert int(moved[j]) == int(s.num_moved)
+
+    # the balancer round, lanes as groups, one lane frozen
+    k = 8
+    parts = [torch.randint(0, k, (pv.n,), generator=gen, device=cuda, dtype=torch.int32)
+             for pv in pvs]
+    bdraws = [balancer.draw_balance_round(gen, bv, pv.n_pad) for bv, pv in zip(bvs, pvs)]
+    bcaps = [torch.full((k,), int(pv.node_w.sum()) // k, dtype=torch.int32, device=cuda)
+             for pv in pvs]
+    blocks = lops.LaneBlocks.build(union, [k] * 4)
+    lab = torch.cat([pv.pad_node_array(p, 0) for pv, p in zip(pvs, parts)])
+    out, flags = lops.lane_balance_round(union, blocks, lab, bdraws[:3] + [None], node_w,
+                                         torch.cat(bcaps))
+    for j in range(3):
+        ref, rflags = balancer._balance_round(pvs[j].pad_node_array(parts[j], 0), bdraws[j],
+                                              bvs[j], pvs[j].node_w, bcaps[j], k=k)
+        assert torch.equal(out[off[j]:off[j + 1]], ref)
+        assert torch.equal(flags[j], rflags)
+    assert torch.equal(out[off[3]:off[4]], lab[off[3]:off[4]])
+
+
+@pytest.mark.cuda
+def test_lanestacked_batch_equals_sequential_card_runs(cuda):
+    """A 4-lane stacked batch on the card equals each graph's sequential
+    ``KaMinPar`` run on the card bit for bit, and launches both kernels."""
+    import copy
+
+    from kaminpar_tpu_torch.presets import create_context_by_preset_name
+    from kaminpar_tpu_torch.serve.lanestack import run_lanestacked
+
+    ctx = create_context_by_preset_name("serve")
+    ctx.coarsening.contraction_limit = 64
+    graphs = _lane_graphs()
+    lp_kernels.reset_launches()
+    parts, rep = run_lanestacked(ctx, graphs, 8, 0.03, device=cuda)
+    if cuda.type == "cuda":
+        assert rep.launches["lp_rate"] > 0 and rep.launches["lp_commit"] > 0
+    assert rep.levels > 0
+    for g, part in zip(graphs, parts):
+        solver = kp.KaMinPar(copy.deepcopy(ctx), device=cuda)
+        solver.set_graph(g)
+        assert np.array_equal(solver.compute_partition(8, 0.03), part)

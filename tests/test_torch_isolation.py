@@ -111,3 +111,39 @@ def test_device_pool_runs_with_jax_unimportable():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+def test_serve_tier_runs_with_jax_unimportable():
+    """The serve tier (``serve/``, ``ops/lanestack.py`` and the telemetry
+    modules it reads) is covered by the import scan, and an engine serves
+    a lane-stacked batch and its /metrics text without jax."""
+    for rel in ("serve/engine.py", "serve/lanestack.py", "serve/batching.py",
+                "serve/journal.py", "serve/queue.py", "serve/stats.py", "serve/errors.py",
+                "serve/__main__.py", "ops/lanestack.py", "telemetry/reqtrace.py",
+                "telemetry/slo.py", "telemetry/prometheus.py", "telemetry/capacity.py",
+                "utils/compile_stats.py"):
+        assert ROOT / "kaminpar_tpu_torch" / rel in PORT_FILES, rel
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kaminpar_tpu'] = None\n"
+        "from kaminpar_tpu_torch.graph import generators\n"
+        "from kaminpar_tpu_torch.serve import PartitionEngine\n"
+        "from kaminpar_tpu_torch.telemetry import prometheus\n"
+        "eng = PartitionEngine('serve', device='cpu', warm_ladder=(), warm_ks=())\n"
+        "eng.pause()\n"
+        "eng.start(warmup=False)\n"
+        "futs = [eng.submit(generators.grid2d_graph(12, 12 + i), 4) for i in range(2)]\n"
+        "eng.resume()\n"
+        "assert all(f.result(timeout=120).feasible for f in futs)\n"
+        "assert eng.stats()['lanestacked_batches'] == 1\n"
+        "prometheus.validate(eng.metrics_text())\n"
+        "eng.shutdown()\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
